@@ -20,3 +20,8 @@ if settings is not None:
     _profile = os.environ.get("HYPOTHESIS_PROFILE")
     if _profile:
         settings.load_profile(_profile)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips (with its reason) without one")
