@@ -15,14 +15,31 @@ Phases (each one fails the run when it does not hold):
    ``quantized_l2``), load the fine-tune at ``bits=8`` and ``bits=4`` and
    greedy-decode through ``CompressedModel`` (every matmul through
    ``dequant_matmul``/``_int4``), checked against the materialized forward.
+5. ``flash_attention`` against its plain version on the card: the shapes of
+   the reference's kernel tests (float32), the internlm2 prefill shape
+   (float32 and bfloat16) and one 8192-token prompt (bfloat16), each with
+   kernel, plain, bound and ``scaled_dot_product_attention`` times.
+6. The model stack at the full widths and depth of internlm2-1.8b (24
+   layers, bfloat16, random weights from ``SEED``): ``make_prefill_step`` on
+   4 x 2048 prompts (24 ``flash_attention`` launches); in float32, the
+   forward's logits against a ``decode_step`` loop over a 32-token prompt;
+   ``make_serve_step`` greedy decode of 16 tokens at batch 4.
+7. The store-backed server (internlm2 widths, depth cut to 2 layers):
+   ``CheckpointManager.save`` (distance blocks through ``quantized_l2``),
+   ``ModelServer`` ``load`` and ``generate`` at ``bits=None``, checked
+   against a ``decode_step`` loop over the in-memory parameters, and at
+   ``bits=8``.
 
-The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
+Each path's launch counts are set to 0 just before it and read just after;
+the run fails unless every kernel was launched on some path. The last line
+is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the repository beside it, the script exits non-zero and prints no
 result. It imports nothing of JAX and nothing of the ``repro`` package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -40,6 +57,7 @@ SEED = 0
 # other H100 variants use their own memory rate (see _bandwidth).
 HBM_SXM = 3.35e12
 FP32_PEAK = 67e12
+BF16_TC_PEAK = 989e12  # dense bf16 tensor-core rate
 # Decode widths of internlm2-1.8b (repro/configs/internlm2_1_8b.py): 24
 # layers in the published model, cut to 2 here because the save path is
 # host numpy and 24 layers would not fit the run's time limit.
@@ -56,6 +74,28 @@ MATMUL_PER_STEP = {(2048, 2048): 2 * N_LAYERS, (2048, 1024): 2 * N_LAYERS,
 # per save: q/o, k/v, MLP, embedding/LM head, norm gains.
 L2_SHAPES = {(2, 4, 4194304): 2, (4, 4, 2097152): 1, (1, 6, 16777216): 6,
              (1, 2, 189530112): 2, (5, 1, 2048): 1}
+# flash_attention shapes (B, Sq, Sk, H, KV, dh, causal, window): those of
+# tests/test_kernels.py, in float32 at the reference's rtol 1e-4 / atol 2e-5.
+FA_TEST_SHAPES = [(2, 256, 256, 8, 4, 64, True, 0), (1, 256, 256, 4, 1, 128, True, 64),
+                  (2, 128, 128, 8, 8, 64, False, 0), (1, 200, 256, 8, 2, 64, True, 0),
+                  (1, 384, 384, 16, 16, 80, False, 0), (1, 37, 37, 4, 2, 64, False, 0),
+                  (2, 50, 100, 8, 4, 32, False, 0), (1, 100, 50, 4, 4, 64, False, 0)]
+# The internlm2-1.8b prefill of phase 6 (one launch per layer) and a long prompt.
+FA_PREFILL = (4, 2048, 2048, 16, 8, 128, True, 0)
+FA_LONG = (1, 8192, 8192, 16, 8, 128, True, 0)
+# bfloat16 outputs: kernel and plain version both round a float32 result to
+# bfloat16; their float32 sums differ in the last bits, so a rounding may
+# land one bfloat16 step apart (2^-8 to 2^-7 relative).
+FA_BF16_TOL = (1e-2, 1e-5)
+PREFILL_BATCH, PREFILL_LEN = 4, 2048
+CONSISTENCY_LEN = 32
+# float32 forward (flash_attention) against the decode loop (plain attention
+# over the cache) at 24 layers. Both are IEEE float32 and differ only in the
+# order of sums: on an H100 the logits (|x| up to about 5) agreed within
+# 2.8e-5, so 1e-3 leaves a margin of about 36x. The reference's
+# test_prefill_decode_consistency holds 2e-2 / 2e-3, far looser than that.
+CONSISTENCY_TOL = (1e-3, 1e-3)
+SERVE_LAYERS = 2  # phase 7's depth: the checkpoint save is host numpy
 
 
 def log(msg: str) -> None:
@@ -264,6 +304,101 @@ def phase_kernels(dev_info: dict) -> list[dict]:
     return entries
 
 
+def _attention_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one head: the work this input needs."""
+    q = np.arange(sq)
+    hi = np.minimum(sk, q + 1) if causal else np.full(sq, sk)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(sq, dtype=np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _sdpa(q, k, v, causal: bool, window: int):
+    """The library yardstick: one scaled_dot_product_attention call in its
+    (B, H, S, dh) layout on views of the same tensors (never on the port's
+    path)."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window > 0:
+        qp = torch.arange(q.shape[1], device=q.device)[:, None]
+        kp = torch.arange(k.shape[1], device=q.device)[None, :]
+        mask = (qp - kp < window) & ((qp >= kp) if causal else True)
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                enable_gqa=True)
+    return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                            enable_gqa=True)
+
+
+def phase_flash_attention(dev_info: dict) -> dict:
+    """Phase 5: the kernel against its plain version, with times."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    bw = dev_info["bandwidth"]
+    rng = np.random.default_rng(SEED + 5)
+    dev = torch.device("cuda")
+    flush = torch.zeros(64 << 20, dtype=torch.float32, device=dev)
+    cases = [(shape, torch.float32) for shape in FA_TEST_SHAPES]
+    cases += [(FA_PREFILL, torch.float32), (FA_PREFILL, torch.bfloat16), (FA_LONG, torch.bfloat16)]
+    max_abs, main = 0.0, None
+    for shape, dtype in cases:
+        b, sq, sk, h, kv, dh, causal, window = shape
+        q, k, v = (torch.from_numpy(rng.normal(0, 1, (b, s, n, dh)).astype(np.float32))
+                   .to(dev, dtype) for s, n in ((sq, h), (sk, kv), (sk, kv)))
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        rtol, atol = (1e-4, 2e-5) if dtype == torch.float32 else FA_BF16_TOL
+        abs_err, ratio = _close(got, want, rtol, atol)
+        name = f"flash_attention B={b} Sq={sq} Sk={sk} H={h} KV={kv} dh={dh} " \
+               f"causal={causal} window={window} {str(dtype).split('.')[1]}"
+        if (got.dtype != dtype or not torch.isfinite(got).all() or ratio > 1.0):
+            fail(f"{name}: max abs err {abs_err:.3e}, allclose ratio {ratio:.3f} "
+                 f"(rtol {rtol}, atol {atol})")
+        big = sq * sk >= 1 << 22
+        ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
+                      10 if big else 20, flush)
+        plain_ms = _time_ms(lambda: ref.flash_attention(q, k, v, causal=causal, window=window),
+                            3 if big else 10, flush)
+        lib_ms = _time_ms(lambda: _sdpa(q, k, v, causal, window), 10 if big else 20, flush)
+        esize = q.element_size()
+        nbytes = (2 * b * sq * h + 2 * b * sk * kv) * dh * esize
+        flops = 4 * b * h * dh * _attention_pairs(sq, sk, causal, window)
+        # The bound takes the card's peak for the operand type: bfloat16 on
+        # the tensor cores, float32 outside them (TF32 would miss rtol 1e-4).
+        # The kernel computes in IEEE float32 for either type, so the float32
+        # figure is printed beside the bfloat16 bound as its own field.
+        peak = BF16_TC_PEAK if dtype == torch.bfloat16 else FP32_PEAK
+        bound = max(nbytes / bw, flops / peak) * 1e3
+        f32_arith = max(nbytes / bw, flops / FP32_PEAK) * 1e3
+        log(f"shape: {name}: ms {ms:.6f} plain {plain_ms:.6f} library {lib_ms:.6f} "
+            f"bound {bound:.6f} (at {peak / 1e12:.0f} TFLOP/s; at the float32 peak "
+            f"{f32_arith:.6f}) achieved {flops / ms / 1e9:.3f} TFLOP/s "
+            f"abs_err {abs_err:.3e} ratio {ratio:.3f} (rtol {rtol} atol {atol})")
+        max_abs = max(max_abs, abs_err)
+        if shape == FA_PREFILL and dtype == torch.bfloat16:
+            main = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bytes": nbytes, "flops": flops}
+        del q, k, v, got, want
+    del flush
+    torch.cuda.empty_cache()
+    # Per internlm2-1.8b prefill: one launch per layer at the bf16 prefill shape.
+    n = _internlm2().n_layers
+    t_bytes, t_ops = n * main["bytes"] / bw * 1e3, n * main["flops"] / BF16_TC_PEAK * 1e3
+    f32_arith = max(t_bytes, n * main["flops"] / FP32_PEAK * 1e3)
+    log(f"flash_attention per prefill ({n} launches at {FA_PREFILL}, bfloat16): kernel "
+        f"{n * main['ms']:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms at the bfloat16 "
+        f"tensor-core peak, {f32_arith:.6f} ms at the float32 peak")
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:79", "launches": 0,
+        "max_abs_err": max_abs, "ms": n * main["ms"], "plain_ms": n * main["plain_ms"],
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": n * main["library_ms"],
+        "bound_f32_arith_ms": f32_arith,
+    }
+
+
 def _finetune(tensors: dict, rng) -> dict:
     """The base plus seeded noise of 1e-3 x each tensor's std."""
     return {k: (v + rng.normal(0.0, 1e-3 * float(v.std()), v.shape)).astype(np.float32)
@@ -338,22 +473,8 @@ def _decode_checked(eng, spec, prompt, bits: int, bw: float) -> dict:
     del mat
     if logits.shape != (BATCH, STEPS, spec.vocab_size) or not torch.isfinite(logits).all():
         fail(f"bits={bits}: logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
-    # Compare step by step while both decodes fed the same tokens; a
-    # near-tie (top-2 margin within tolerance) may legitimately split them.
-    tol = 1e-4
-    compared = 0
-    for s in range(STEPS):
-        abs_err, ratio = _close(logits[:, s], want_logits[:, s], tol, tol)
-        if ratio > 1.0:
-            fail(f"bits={bits} step {s}: logits differ by {abs_err:.3e} (rtol/atol {tol})")
-        top2 = want_logits[:, s].topk(2, dim=1).values
-        clear = (top2[:, 0] - top2[:, 1]) > tol * (1 + top2[:, 0].abs())
-        if not torch.equal(tokens[:, s][clear], want_tokens[:, s][clear]):
-            fail(f"bits={bits} step {s}: tokens differ where the margin is clear")
-        compared += 1
-        if not torch.equal(tokens[:, s], want_tokens[:, s]):
-            log(f"bits={bits}: a near-tie split the decodes at step {s}; compared {compared} steps")
-            break
+    compared = _check_tokens(f"bits={bits}", tokens, want_tokens, want_logits, 1e-4,
+                             got_logits=logits)
     tok_s = BATCH * STEPS / decode_s
     ms_step = decode_s / n_steps * 1e3
     log(f"decode bits={bits}: load {load_s:.6f} s (open + operand upload + first decode), "
@@ -412,11 +533,228 @@ def phase_main_path(dev_info: dict) -> dict[str, int]:
         counts = ops.launch_counts()
         eng.close()
     log(f"main path launches: {counts}")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in ("dequant_matmul", "dequant_matmul_int4", "quantized_l2"):
+        if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
     first = results[8]["tokens"][:, :4].tolist()
     log(f"tokens bits=8, first 4 per prompt: {first}")
+    return counts
+
+
+def _internlm2():
+    from repro_torch.configs import get_config
+
+    return get_config("internlm2-1.8b")
+
+
+def _greedy(params, cfg, prompts: torch.Tensor, steps: int):
+    """The prompt teacher-forced through ``decode_step``, then ``steps``
+    greedy tokens: (tokens (B, steps), logits (B, steps, V) float32)."""
+    from repro_torch.models import decode_step, init_cache
+
+    b, s0 = prompts.shape
+    with torch.inference_mode():
+        cache = init_cache(cfg, b, s0 + steps)
+        for t in range(s0):
+            logits, cache = decode_step(params, cache, {"tokens": prompts[:, t:t + 1]}, t, cfg)
+        toks, all_logits = [], []
+        for i in range(steps):
+            all_logits.append(logits[:, -1].float())
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            toks.append(tok)
+            logits, cache = decode_step(params, cache, {"tokens": tok}, s0 + i, cfg)
+    return torch.cat(toks, dim=1), torch.stack(all_logits, dim=1)
+
+
+def _check_tokens(what: str, got: torch.Tensor, want: torch.Tensor, want_logits: torch.Tensor,
+                  tol: float, got_logits: torch.Tensor | None = None) -> int:
+    """Tokens equal step by step while both decodes were fed the same
+    tokens; a near tie (top-2 margin within ``tol``) may split them, and
+    ends the comparison. With ``got_logits``, the logits of each compared
+    step must agree within rtol = atol = ``tol`` too. Returns the number of
+    steps compared."""
+    compared = 0
+    for s in range(want.shape[1]):
+        if got_logits is not None:
+            abs_err, ratio = _close(got_logits[:, s], want_logits[:, s], tol, tol)
+            if ratio > 1.0:
+                fail(f"{what} step {s}: logits differ by {abs_err:.3e} (rtol/atol {tol})")
+        top2 = want_logits[:, s].topk(2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) > tol * (1 + top2[:, 0].abs())
+        if not torch.equal(got[:, s][clear], want[:, s][clear]):
+            fail(f"{what} step {s}: tokens differ where the margin is clear")
+        compared += 1
+        if not torch.equal(got[:, s], want[:, s]):
+            log(f"{what}: a near tie split the decodes at step {s}; compared {compared} steps")
+            break
+    return compared
+
+
+def phase_model_stack() -> dict[str, int]:
+    """Phase 6: internlm2-1.8b at full width and depth."""
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+
+    cfg = _internlm2()
+    rng = np.random.default_rng(SEED + 6)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _flatten(params).values())
+    log(f"model stack: {cfg.name} as published ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, d_head {cfg.d_head}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, {cfg.param_dtype}); {n_params} parameters initialised on the "
+        f"card in {time.perf_counter() - t0:.3f} s")
+
+    # (a) prefill: the main path of this phase, counted.
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN))).to(dev)
+    prefill = make_prefill_step(cfg)
+    ops.reset_launch_counts()
+    last = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if counts["flash_attention"] != cfg.n_layers:
+        fail(f"prefill: {counts['flash_attention']} flash_attention launches, want {cfg.n_layers}")
+    if tuple(last.shape) != (PREFILL_BATCH, cfg.vocab_size) or not torch.isfinite(last).all():
+        fail(f"prefill: logits {tuple(last.shape)}, finite {bool(torch.isfinite(last).all())}")
+    times = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        again = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    if not torch.equal(again, last):
+        fail("prefill: a second run gave other logits")
+    pre_s = float(np.median(times))
+    log(f"prefill {PREFILL_BATCH} x {PREFILL_LEN}: {pre_s * 1e3:.6f} ms (median of 3, "
+        f"{[round(t * 1e3, 3) for t in times]}), "
+        f"{PREFILL_BATCH * PREFILL_LEN / pre_s:.6f} tokens/s; launches {counts}")
+
+    # (c) greedy serving: teacher-force a prompt, then 16 greedy tokens.
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT_LEN))).to(dev)
+    serve = make_serve_step(cfg)
+    cache = init_cache(cfg, BATCH, PROMPT_LEN + STEPS)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        for t in range(PROMPT_LEN):
+            tok, cache = serve(params, cache, {"tokens": prompt[:, t:t + 1]}, t)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = []
+        for i in range(STEPS):
+            out.append(tok)
+            tok, cache = serve(params, cache, {"tokens": tok[:, None].long()}, PROMPT_LEN + i)
+        torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t1
+    serve_counts = ops.launch_counts()
+    gen = torch.stack(out, dim=1)
+    if tuple(gen.shape) != (BATCH, STEPS) or int(gen.min()) < 0 or int(gen.max()) >= cfg.vocab_size:
+        fail(f"serve: tokens {tuple(gen.shape)} in [{int(gen.min())}, {int(gen.max())}]")
+    log(f"serve step (greedy, batch {BATCH}, cache {PROMPT_LEN + STEPS}): "
+        f"{dec_s / STEPS * 1e3:.6f} ms/step, {BATCH * STEPS / dec_s:.6f} tokens/s over "
+        f"{STEPS} steps after a {PROMPT_LEN}-token prompt; first tokens "
+        f"{gen[:, :4].tolist()}; launches {serve_counts}")
+    del params, cache, last, again
+    torch.cuda.empty_cache()
+
+    # (b) float32, same widths and depth: forward against the decode loop.
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    params = init_params(cfg32, SEED, device=dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, CONSISTENCY_LEN))).to(dev)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        full = forward(params, {"tokens": toks}, cfg32)
+        torch.cuda.synchronize()
+        f32_counts = ops.launch_counts()
+        cache = init_cache(cfg32, 1, CONSISTENCY_LEN)
+        steps = []
+        for t in range(CONSISTENCY_LEN):
+            lg, cache = decode_step(params, cache, {"tokens": toks[:, t:t + 1]}, t, cfg32)
+            steps.append(lg)
+        steps = torch.cat(steps, dim=1)
+    if f32_counts["flash_attention"] != cfg.n_layers:
+        fail(f"float32 forward: {f32_counts['flash_attention']} flash_attention launches")
+    rtol, atol = CONSISTENCY_TOL
+    abs_err, ratio = _close(steps, full, rtol, atol)
+    if not torch.isfinite(full).all() or ratio > 1.0:
+        fail(f"float32 forward against decode: max abs err {abs_err:.3e}, ratio {ratio:.3f} "
+             f"(rtol {rtol}, atol {atol})")
+    log(f"float32 {cfg.n_layers} layers: forward logits over {CONSISTENCY_LEN} tokens against "
+        f"the decode_step loop: max abs err {abs_err:.3e}, allclose ratio {ratio:.6f} "
+        f"(rtol {rtol}, atol {atol}); |logits| max {float(full.abs().max()):.3f}; "
+        f"launches {f32_counts}")
+    del params, cache, full, steps
+    torch.cuda.empty_cache()
+    return {k: counts[k] + serve_counts[k] + f32_counts[k] for k in counts}
+
+
+def phase_server(dev_info: dict) -> dict[str, int]:
+    """Phase 7: CheckpointManager → ModelServer on the card."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ModelServer
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(_internlm2(), n_layers=SERVE_LAYERS)
+    log(f"server: {cfg.name} widths, depth cut from {_internlm2().n_layers} to "
+        f"{SERVE_LAYERS} layers (the checkpoint save is host numpy), {cfg.param_dtype}")
+    dev = torch.device("cuda")
+    params = init_params(cfg, SEED + 7, device=dev)
+    prompts = np.random.default_rng(SEED + 7).integers(0, cfg.vocab_size, (BATCH, PROMPT_LEN))
+    want, want_logits = _greedy(params, cfg, torch.from_numpy(prompts).to(dev), STEPS)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="chip_smoke_ckpt_") as root:
+        ops.reset_launch_counts()
+        mgr = CheckpointManager(root)
+        t0 = time.perf_counter()
+        mgr.save(1, params)
+        save_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        rep = mgr.storage_report()
+        log(f"checkpoint save: {save_s:.6f} s, {rep['original_bytes']} original bytes, "
+            f"{rep['total']} stored, quantized_l2 launches {counts['quantized_l2']}")
+        if counts["quantized_l2"] <= 0:
+            fail("checkpoint save: no quantized_l2 launch")
+        for bits in (None, 8):
+            ops.reset_launch_counts()
+            srv = ModelServer(cfg, root, bits=bits)
+            t0 = time.perf_counter()
+            step = srv.load()
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            toks, stats = srv.generate(step, prompts, max_new_tokens=STEPS)
+            for k, n in ops.launch_counts().items():
+                counts[k] += n
+            if toks.shape != (BATCH, STEPS) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+                fail(f"server bits={bits}: tokens {toks.shape}")
+            restored, saved = _flatten(srv._models[step]), _flatten(params)
+            if sorted(restored) != sorted(saved):
+                fail(f"server bits={bits}: restored tensors {sorted(restored)}")
+            diffs = [(restored[k].float() - saved[k].float()).abs().max().item() for k in saved]
+            n_equal = sum(d == 0 for d in diffs)
+            line = (f"server bits={bits}: load {load_s:.6f} s, prompt {stats['prefill_s']:.6f} s, "
+                    f"{stats['tokens_per_s']:.6f} tokens/s ({stats['decode_s'] / STEPS * 1e3:.6f} "
+                    f"ms/step, batch {BATCH}); restored tensors bit-equal to the saved ones "
+                    f"{n_equal} of {len(diffs)}, max abs diff {max(diffs):.3e}")
+            if bits is None:
+                # bfloat16 logits: a near tie is a top-2 margin within 2 bf16 steps.
+                compared = _check_tokens("server bits=None", torch.from_numpy(toks).to(dev),
+                                         want, want_logits, 2 ** -7)
+                line += f"; tokens equal the in-memory decode over {compared} steps"
+            else:
+                agree = float((torch.from_numpy(toks).to(dev) == want).float().mean())
+                line += f"; {agree:.3f} of tokens equal the in-memory bits=None decode"
+            log(line)
+            srv.mgr.close()
+            del srv, restored
+        mgr.close()
+    del params
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -434,6 +772,19 @@ def main() -> int:
     t1 = time.perf_counter()
     counts = phase_main_path(dev_info)
     log(f"main path phase: {time.perf_counter() - t1:.3f} s")
+    t1 = time.perf_counter()
+    entries.append(phase_flash_attention(dev_info))
+    log(f"flash_attention phase: {time.perf_counter() - t1:.3f} s")
+    for label, phase in (("model stack", phase_model_stack),
+                         ("server", lambda: phase_server(dev_info))):
+        t1 = time.perf_counter()
+        for name, n in phase().items():
+            counts[name] += n
+        log(f"{label} phase: {time.perf_counter() - t1:.3f} s")
+    log(f"launches over all main paths: {counts}")
+    for name, n in counts.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on any main path")
     for e in entries:
         e["launches"] = counts[e["name"]]
     bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro."))

@@ -1,0 +1,34 @@
+"""qwen3-8b [dense] — qk_norm, GQA.
+
+36L d_model=4096 32H (GQA kv=8) d_ff=12288 vocab=151936
+[hf:Qwen/Qwen3-8B; hf].
+"""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-8b",
+    family="dense",
+    n_layers=36,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=12288,
+    vocab_size=151_936,
+    qk_norm=True,
+)
+
+SMOKE = ModelConfig(
+    name="qwen3-smoke",
+    family="dense",
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=2,
+    d_ff=128,
+    vocab_size=256,
+    qk_norm=True,
+    param_dtype="float32",
+    compute_dtype="float32",
+    attn_chunk=32,
+)

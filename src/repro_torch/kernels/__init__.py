@@ -5,13 +5,16 @@
   product, so the full-precision weight never exists in device memory.
 * ``quantized_l2`` — batched quantized-L2 distance (the paper's AVX2
   ``QuantizedL2Space``, §5), the HNSW distance block.
+* ``flash_attention`` — forward softmax attention, grouped GQA with causal,
+  local-window and key-length masks: the model stack's attention.
 
 The sources live in ``repro_torch/csrc/`` and are built by ``_build`` at
 first use; ``ops.py`` holds the dispatch seams and ``ref.py`` the plain
 PyTorch versions the wrappers use for CPU tensors. The kernel wrappers
-themselves are ``ops.dequant_matmul``, ``ops.dequant_matmul_int4`` and
-``ops.quantized_l2``; the package names ``dequant_matmul`` and
-``quantized_l2`` stay the submodules.
+themselves are ``ops.dequant_matmul``, ``ops.dequant_matmul_int4``,
+``ops.quantized_l2`` and ``ops.flash_attention``; the package names
+``dequant_matmul``, ``quantized_l2`` and ``flash_attention`` stay the
+submodules.
 """
 
 from . import ops, ref

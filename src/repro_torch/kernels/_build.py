@@ -26,7 +26,7 @@ __all__ = ["BUILD_DIR", "CSRC_DIR", "KERNEL_SOURCES", "build_all", "load_library
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNEL_SOURCES = ("dequant_matmul", "quantized_l2")
+KERNEL_SOURCES = ("dequant_matmul", "quantized_l2", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

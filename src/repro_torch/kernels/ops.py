@@ -1,7 +1,8 @@
 """Dispatch seams over the port's CUDA kernels.
 
-``quantized_l2_auto`` (the HNSW distance block) and ``dequant_matmul_auto``
-(compute on compressed weights) keep the reference's signatures and its
+``quantized_l2_auto`` (the HNSW distance block), ``dequant_matmul_auto``
+(compute on compressed weights) and ``flash_attention`` (the model stack's
+attention) keep the reference's signatures; the first two keep its
 ``force=None/"kernel"/"numpy"`` contract, with one difference of place: on
 a CUDA device **every** call launches the kernel (no size gate yet; the
 gate for the card is still to be measured, see PERF.md), and nothing on a
@@ -16,13 +17,15 @@ import numpy as np
 import torch
 
 from . import dequant_matmul as _dm
+from . import flash_attention as _fa
 from . import quantized_l2 as _ql2
 from .dequant_matmul import dequant_matmul, dequant_matmul_int4
 from .quantized_l2 import quantized_l2
 
 __all__ = ["dequant_matmul", "dequant_matmul_auto", "dequant_matmul_int4",
-           "quantized_l2", "quantized_l2_auto", "pack_int4", "resolve_device",
-           "launch_counts", "reset_launch_counts", "KERNEL_DISPATCH_MIN_ELEMS"]
+           "flash_attention", "quantized_l2", "quantized_l2_auto", "pack_int4",
+           "resolve_device", "launch_counts", "reset_launch_counts",
+           "KERNEL_DISPATCH_MIN_ELEMS"]
 
 # The reference's TPU gate, kept so the seams' signatures match. The port
 # ignores it on CUDA devices (every call launches) and on the CPU (the
@@ -50,11 +53,11 @@ def resolve_device(device) -> torch.device:
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {**_dm.launches, **_ql2.launches}
+    return {**_dm.launches, **_ql2.launches, **_fa.launches}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_dm.launches, _ql2.launches):
+    for counts in (_dm.launches, _ql2.launches, _fa.launches):
         for key in counts:
             counts[key] = 0
 
@@ -184,3 +187,19 @@ def dequant_matmul_auto(x, base, base_scale, base_zp, delta, delta_scale,
     y = x32 @ wf
     y += c * x32.sum(dim=1, keepdim=True)
     return y
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, sk_true=None, block_q=128,
+                    block_k=128):
+    """Flash attention forward (grouped GQA): the seam the model stack calls.
+
+    q (B, Sq, H, dh); k, v (B, Sk, KV, dh) → (B, Sq, H, dh); keys at or past
+    ``sk_true`` (default Sk) are masked. On CUDA tensors the kernel runs and
+    tiles for itself: ``block_q`` and ``block_k`` are inert, accepted only so
+    that calls written for the reference's signature run unchanged. The
+    kernel masks ragged Sq and Sk itself, so no padded copy is made and no
+    padded q row is produced (the reference computes padded rows and slices
+    them off). CPU tensors take the plain version.
+    """
+    del block_q, block_k
+    return _fa.flash_attention(q, k, v, causal=causal, window=window, sk_true=sk_true)

@@ -16,6 +16,7 @@ __all__ = [
     "unpack_int4",
     "dequant_matmul_int4",
     "quantized_l2",
+    "flash_attention",
 ]
 
 
@@ -67,3 +68,32 @@ def quantized_l2(queries, codes, scales, zps, mids):
         diff = deq - q[b]
         out[b] = (diff * diff).sum(dim=1)
     return out
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, sk_true=None):
+    """Grouped-GQA softmax attention with causal / local / key-length masks.
+
+    q (B, Sq, H, dh); k, v (B, Sk, KV, dh) → (B, Sq, H, dh) in q's dtype.
+    Full float32 scores, the bias -1e30 where ``k_pos >= sk_true`` (default
+    Sk), where ``q_pos < k_pos`` if ``causal`` and where ``q_pos - k_pos >=
+    window`` if ``window > 0``, then the softmax and ``w @ v``, in the
+    layout of the reference's ``flash_attention_ref`` (which has no
+    ``sk_true``).
+    """
+    b, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, sq, kv, g, dh).to(torch.float32)
+    s = torch.einsum("bqkgd,bckd->bkgqc", qg, k.to(torch.float32))
+    s = s / (dh ** 0.5)
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    mask = kp < (sk if sk_true is None else sk_true)
+    if causal:
+        mask = mask & (qp >= kp)
+    if window > 0:
+        mask = mask & ((qp - kp) < window)
+    s = torch.where(mask, s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqc,bckd->bkgqd", w, v.to(torch.float32))
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)

@@ -1,1 +1,2 @@
-"""Launch layer: the store-backed compressed serving path."""
+"""Launch layer: the store-backed compressed serving path, the prefill and
+serve steps, the checkpoint-backed ``ModelServer`` and a step profiler."""

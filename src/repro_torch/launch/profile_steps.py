@@ -1,0 +1,201 @@
+"""Where the time of a prefill and of a serve step goes: a profiler trace.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_steps [--trace PATH.json.gz]
+
+Builds internlm2-1.8b as published (24 layers, bfloat16, random weights
+from a seed), the model of ``chip_smoke.py``'s phase 6, then runs one
+``make_prefill_step`` on 4 x 2048 prompts and 16 ``make_serve_step`` tokens
+at batch 4 after a teacher-forced 8-token prompt. Each window is timed
+first plainly (wall clock around a synchronized run), then under
+``torch.profiler`` with CPU and CUDA activities. From the trace it reports,
+per window: the device's busy time (the union of its kernel intervals), its
+busy share of the plain and of the profiled wall time, the kernels and the
+top-level host ops issued, the median gap between one kernel's end and the
+next one's start, and the kernels that take the most device time. The last
+line of the output is one JSON object with those numbers.
+
+``--smoke --device cpu`` runs the same windows on the CPU at the config's
+SMOKE size and a few tokens, as a rehearsal of the script; device shares
+mean nothing there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from ..configs import get_config
+from ..kernels import ops
+from ..models import init_cache, init_params
+from .steps import make_prefill_step, make_serve_step
+
+__all__ = ["main", "summarize"]
+
+ARCH, SEED = "internlm2-1.8b", 0
+# (batch, prefill length, prompt length, serve steps): published, and --smoke.
+SIZES = {False: (4, 2048, 8, 16), True: (2, 16, 3, 2)}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _union_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def summarize(prof, wall_s: float, reps: int, top: int = 8) -> dict:
+    """Device busy time, shares, kernel and host-op counts of a profiled
+    window of ``reps`` repetitions that took ``wall_s`` on the wall clock."""
+    kernels, host_ops = [], 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels.append(e)
+        elif e.cpu_parent is None and e.name.startswith("aten::"):
+            host_ops += 1
+    intervals = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us = _union_us(intervals)
+    gaps = [max(0.0, s2 - e1) for (_, e1), (s2, _) in zip(intervals, intervals[1:])]
+    by_name: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.end - e.time_range.start
+        by_name[e.name][1] += 1
+    top_k = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    wall_us = wall_s * 1e6
+    return {
+        "wall_ms": wall_us / reps / 1e3,
+        "device_busy_ms": busy_us / reps / 1e3,
+        "busy_share": busy_us / wall_us if wall_us else 0.0,
+        "idle_share": 1.0 - busy_us / wall_us if wall_us else 0.0,
+        "kernels": len(kernels) / reps,
+        "host_ops": host_ops / reps,
+        "median_gap_us": float(np.median(gaps)) if gaps else 0.0,
+        "top_kernels": [{"name": n[:90], "ms": t / reps / 1e3, "count": c / reps}
+                        for n, (t, c) in top_k],
+    }
+
+
+def _profiled(fn, reps: int, dev: torch.device) -> tuple[object, float]:
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    _sync(dev)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def _window(summary: dict, plain_ms: float, **shape) -> dict:
+    """A window's summary with its unprofiled wall time and the device's
+    busy share of that time (the profiler slows the host, not the kernels)."""
+    busy = summary["device_busy_ms"] / plain_ms if plain_ms else 0.0
+    return {**shape, "plain_wall_ms": plain_ms, "busy_share_of_plain": busy, **summary}
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--smoke", action="store_true", help="SMOKE size, a few tokens")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--trace", default=None, help="write the serve window's Chrome trace here")
+    args = p.parse_args(argv)
+    batch, prefill_len, prompt_len, steps = SIZES[args.smoke]
+
+    dev = ops.resolve_device(args.device)
+    cfg = get_config(ARCH, smoke=args.smoke)
+    params = init_params(cfg, SEED, device=dev)
+    rng = np.random.default_rng(SEED + 1)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.param_dtype,
+           "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}
+    print(f"profile_steps: {cfg.name}, {cfg.n_layers} layers, {cfg.param_dtype}, "
+          f"device {out['device']}", flush=True)
+
+    # ---- prefill: one step of batch x prefill_len
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (batch, prefill_len))).to(dev)
+    prefill = make_prefill_step(cfg)
+
+    def run_prefill():
+        prefill(params, {"tokens": tokens})
+
+    run_prefill()
+    _sync(dev)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run_prefill()
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+    prof, wall = _profiled(run_prefill, 1, dev)
+    out["prefill"] = _window(summarize(prof, wall, 1), float(np.median(times)) * 1e3,
+                             batch=batch, len=prefill_len)
+    del tokens
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- serve: teacher-force the prompt, then time greedy steps
+    serve = make_serve_step(cfg)
+    total = prompt_len + 3 * steps + 1
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (batch, prompt_len))).to(dev)
+    state = {"cache": init_cache(cfg, batch, total, device=dev), "pos": 0, "tok": None}
+
+    def step(tok):
+        nxt, state["cache"] = serve(params, state["cache"], {"tokens": tok}, state["pos"])
+        state["pos"] += 1
+        state["tok"] = nxt[:, None].long()
+
+    for t in range(prompt_len):
+        step(prompt[:, t:t + 1])
+    for _ in range(steps):  # warm
+        step(state["tok"])
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(state["tok"])
+    _sync(dev)
+    plain = time.perf_counter() - t0
+    prof, wall = _profiled(lambda: step(state["tok"]), steps, dev)
+    out["serve"] = _window(summarize(prof, wall, steps), plain / steps * 1e3,
+                           batch=batch, steps=steps)
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+    for window in ("prefill", "serve"):
+        w = out[window]
+        print(f"{window}: plain {w['plain_wall_ms']:.6f} ms; profiled {w['wall_ms']:.6f} ms, "
+              f"device busy {w['device_busy_ms']:.6f} ms (busy share {w['busy_share']:.4f} "
+              f"of the profiled time, {w['busy_share_of_plain']:.4f} of the plain time; "
+              f"idle {w['idle_share']:.4f}), {w['kernels']:.1f} kernels and "
+              f"{w['host_ops']:.1f} top-level host ops a step, median gap "
+              f"{w['median_gap_us']:.3f} us", flush=True)
+        for k in w["top_kernels"]:
+            print(f"  {k['ms']:.6f} ms x{k['count']:.1f}  {k['name']}", flush=True)
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,258 @@
+"""The composable model stack: init, sequence forward, loss, decode.
+
+The port of the reference's ``repro/models/transformer.py``. Layers are
+organised as repeated *periods* (``cfg.period``) whose parameters are
+stacked over a leading period axis, exactly as in the reference's tree:
+
+    {"embed", "periods": {"slotI": {"norm1", "seq", "norm2", "mix"}},
+     "final_norm", "lm_head", "tail": [layer, ...]}
+
+so a parameter tree of either package saves to the same checkpoint names
+(``CheckpointManager``) and :func:`params_from_reference` carries the
+reference's parameters across leaf by leaf. Where the reference scans over
+periods, the port loops over them in Python.
+
+Block = sequence mix (attn / local_attn) + channel mix (swiglu / gelu), each
+pre-RMSNormed with a residual add. The recurrent blocks (rglru, rwkv6) and
+the MoE / RWKV channel mixes are not ported yet and raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..kernels.ops import resolve_device
+from .config import ModelConfig
+from .layers import AttentionBlock, GeluMLP, SwiGLU, _normal, rms_norm
+
+Params = dict[str, Any]
+
+__all__ = ["decode_step", "forward", "init_cache", "init_params", "loss_fn",
+           "params_from_reference"]
+
+
+def _dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+# ------------------------------------------------------------- block builders
+def _seq_block(cfg: ModelConfig, kind: str):
+    if kind in ("attn", "local_attn"):
+        return AttentionBlock(
+            n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads,
+            d_head=cfg.d_head,
+            rope_theta=cfg.rope_theta,
+            causal=cfg.causal,
+            window=cfg.window if kind == "local_attn" else 0,
+            qk_norm=cfg.qk_norm,
+            chunk=cfg.attn_chunk,
+            norm_eps=cfg.norm_eps,
+        )
+    if kind in ("rglru", "rwkv6"):
+        raise NotImplementedError(
+            f"{cfg.name}: sequence block {kind!r} (models/recurrent.py) is not "
+            "ported yet: ROADMAP queue A7, the recurrent blocks")
+    raise ValueError(kind)
+
+
+def _mix_block(cfg: ModelConfig, kind: str):
+    if kind == "swiglu":
+        return SwiGLU(cfg.d_ff)
+    if kind == "gelu":
+        return GeluMLP(cfg.d_ff)
+    if kind in ("moe", "moe_dense"):
+        raise NotImplementedError(
+            f"{cfg.name}: channel mix {kind!r} (models/layers.py MoE) is not "
+            "ported yet: ROADMAP queue A7, MoE")
+    if kind == "rwkv_cm":
+        raise NotImplementedError(
+            f"{cfg.name}: channel mix 'rwkv_cm' (models/recurrent.py) is not "
+            "ported yet: ROADMAP queue A7, the recurrent blocks")
+    raise ValueError(kind)
+
+
+def _blocks(cfg: ModelConfig, kinds, mixes):
+    return [(_seq_block(cfg, b), _mix_block(cfg, m)) for b, m in zip(kinds, mixes)]
+
+
+def _blocks_for_period(cfg: ModelConfig):
+    return _blocks(cfg, cfg.period, cfg.mix)
+
+
+def _blocks_for_tail(cfg: ModelConfig):
+    return _blocks(cfg, cfg.tail, cfg.tail_mix)
+
+
+def _index(tree, i: int):
+    """Period ``i`` of a tree stacked over periods (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ----------------------------------------------------------------------- init
+def _init_layer(gen, cfg, seq_blk, mix_blk, dtype, device, lead=()):
+    ones = torch.ones(tuple(lead) + (cfg.d_model,), dtype=dtype, device=device)
+    return {
+        "norm1": ones,
+        "seq": seq_blk.init(gen, cfg.d_model, dtype, device, lead),
+        "norm2": ones.clone(),
+        "mix": mix_blk.init(gen, cfg.d_model, dtype, device, lead),
+    }
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
+    """Random parameters from ``seed`` (a ``torch.Generator`` on ``device``).
+
+    Same tree, shapes, dtypes and scales as the reference's
+    ``init_params``; the numbers differ (``jax.random`` is not torch's).
+    """
+    dev = resolve_device(device)
+    dtype = _dtype(cfg.param_dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    period_blocks = _blocks_for_period(cfg)
+    tail_blocks = _blocks_for_tail(cfg)
+    d = cfg.d_model
+    params: Params = {
+        "embed": _normal(gen, (cfg.vocab_size, d), d ** -0.5, dtype, dev),
+        "periods": {f"slot{i}": _init_layer(gen, cfg, sb, mb, dtype, dev, (cfg.n_periods,))
+                    for i, (sb, mb) in enumerate(period_blocks)},
+        "final_norm": torch.ones((d,), dtype=dtype, device=dev),
+    }
+    if tail_blocks:
+        params["tail"] = [_init_layer(gen, cfg, sb, mb, dtype, dev)
+                          for sb, mb in tail_blocks]
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _normal(gen, (d, cfg.vocab_size), d ** -0.5, dtype, dev)
+    return params
+
+
+def params_from_reference(tree, device="cuda"):
+    """The reference's parameter tree (numpy arrays, e.g. ``jax.device_get``
+    of ``repro.models.init_params``) as the port's tree on ``device``.
+
+    Dicts and lists keep their keys and order; each array becomes a tensor
+    of the same dtype. bfloat16 arrays (numpy's ``bfloat16`` extension
+    type) are carried across as their 16-bit patterns. Arrays are copied
+    (the reference's are read-only).
+    """
+    dev = resolve_device(device)
+
+    def leaf(arr):
+        arr = np.array(arr)
+        if arr.dtype.name == "bfloat16":
+            return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(dev)
+        return torch.from_numpy(arr).to(dev)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return leaf(node)
+
+    return walk(tree)
+
+
+# --------------------------------------------------------- forward (sequence)
+def _apply_layer(cfg, seq_blk, mix_blk, p, x, positions):
+    """Pre-LN residual block."""
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    x = x + seq_blk.forward(p["seq"], h, positions)
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + mix_blk.forward(p["mix"], h)
+
+
+def _embed_in(cfg: ModelConfig, params, batch):
+    # Stub frontends (audio / vlm) feed precomputed embeddings; VLM decode
+    # still feeds text tokens — dispatch on the batch key.
+    if "embeds" in batch:
+        return batch["embeds"].to(_dtype(cfg.compute_dtype))
+    return params["embed"][batch["tokens"]].to(_dtype(cfg.compute_dtype))
+
+
+def _head(cfg, params):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def forward(params: Params, batch: dict, cfg: ModelConfig):
+    """Full-sequence forward → logits (B, S, V)."""
+    x = _embed_in(cfg, params, batch)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    period_blocks = _blocks_for_period(cfg)
+    for i in range(cfg.n_periods):
+        p_period = _index(params["periods"], i)
+        for j, (sb, mb) in enumerate(period_blocks):
+            x = _apply_layer(cfg, sb, mb, p_period[f"slot{j}"], x, positions)
+    for i, (sb, mb) in enumerate(_blocks_for_tail(cfg)):
+        x = _apply_layer(cfg, sb, mb, params["tail"][i], x, positions)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return torch.einsum("bsd,dv->bsv", x, _head(cfg, params))
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig):
+    """Mean next-token cross entropy (labels already shifted). Returns
+    (loss, metrics). Forward only: the port has no backward yet."""
+    logits = forward(params, batch, cfg).to(torch.float32)
+    labels = batch["labels"].to(torch.int64)
+    mask = batch.get("mask")
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        loss = nll.mean()
+        denom = nll.numel()
+    else:
+        mask = mask.to(torch.float32)
+        loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        denom = mask.sum()
+    return loss, {"loss": loss, "tokens": denom}
+
+
+# -------------------------------------------------------------------- decode
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    """Decode cache tree, stacked over periods like the params."""
+    dev = resolve_device(device)
+    dtype = _dtype(cfg.compute_dtype)
+    cache = {"periods": {f"slot{i}": sb.init_cache(batch, max_len, dtype, dev, (cfg.n_periods,))
+                         for i, (sb, _) in enumerate(_blocks_for_period(cfg))}}
+    tail_blocks = _blocks_for_tail(cfg)
+    if tail_blocks:
+        cache["tail"] = [sb.init_cache(batch, max_len, dtype, dev) for sb, _ in tail_blocks]
+    return cache
+
+
+def _decode_layer(cfg, seq_blk, mix_blk, p, x, cache, pos):
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    a, cache = seq_blk.decode(p["seq"], h, cache, pos)
+    x = x + a
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + mix_blk.forward(p["mix"], h), cache
+
+
+def decode_step(params: Params, cache, batch: dict, pos, cfg: ModelConfig):
+    """One token for the whole batch. batch: {"tokens": (B, 1)} (or embeds).
+
+    ``pos`` is the absolute position (cache fill level). Returns
+    (logits (B, 1, V), cache); the cache is updated in place.
+    """
+    x = _embed_in(cfg, params, batch)
+    period_blocks = _blocks_for_period(cfg)
+    for i in range(cfg.n_periods):
+        p_period = _index(params["periods"], i)
+        c_period = _index(cache["periods"], i)
+        for j, (sb, mb) in enumerate(period_blocks):
+            x, _ = _decode_layer(cfg, sb, mb, p_period[f"slot{j}"], x,
+                                 c_period[f"slot{j}"], pos)
+    for i, (sb, mb) in enumerate(_blocks_for_tail(cfg)):
+        x, _ = _decode_layer(cfg, sb, mb, params["tail"][i], x, cache["tail"][i], pos)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return torch.einsum("bsd,dv->bsv", x, _head(cfg, params)), cache

@@ -10,17 +10,24 @@ against their plain PyTorch versions, and the CUDA entry points against
 the same calls with ``device="cpu"``. The shapes reach the paths that
 ``chip_smoke.py`` does not: ragged N and K, the scalar loads (N % 4 or
 D % 8 not zero), more than 8 rows of x, more than 8 code rows and 4
-queries a block, and K too short to split.
+queries a block, and K too short to split; for ``flash_attention``, every
+head dim, groups that do not divide the 128-row tile, strided inputs, key
+lengths short of Sk and rows that have no real key.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import CompressedModel, StorageEngine
 from repro_torch.core.hnsw import HNSWIndex
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.launch.compressed_serve import DecoderSpec, greedy_decode, save_decoder
+from repro_torch.models import forward, init_params, layers
 
 pytestmark = pytest.mark.cuda
 
@@ -129,3 +136,82 @@ def test_save_load_decode_on_the_card_matches_the_cpu(cuda, tmp_path):
         np.testing.assert_array_equal(out["cuda"][0].cpu().numpy(), out["cpu"][0].numpy())
         np.testing.assert_allclose(out["cuda"][1].cpu().numpy(), out["cpu"][1].numpy(),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,window,sk_true", [
+    (2, 256, 256, 8, 4, 64, True, 0, None),
+    (1, 256, 256, 4, 1, 128, True, 64, None),   # MQA + window
+    (2, 128, 128, 8, 8, 64, False, 0, None),
+    (1, 200, 256, 8, 2, 64, True, 0, None),     # ragged Sq
+    (1, 384, 384, 16, 16, 80, False, 0, None),  # dh = 80
+    (1, 37, 37, 4, 2, 64, False, 0, None),
+    (2, 50, 100, 8, 4, 32, False, 0, None),
+    (1, 100, 50, 4, 4, 64, False, 0, None),
+    (1, 70, 70, 56, 8, 128, True, 0, None),     # G = 7 does not divide the tile
+    (1, 130, 90, 6, 2, 32, False, 20, None),    # rows past 108 have no real key
+    (2, 96, 160, 4, 2, 64, False, 0, 131),      # keys masked past sk_true
+    (1, 1, 300, 8, 2, 128, True, 0, None),      # one query row
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, b, sq, sk, h, kv, dh, causal, window,
+                                              sk_true, dtype):
+    rng = np.random.default_rng(sq + sk + h + dh)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(cuda, dtype)
+               for shape in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh)))
+    before = ops.launch_counts()["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window, sk_true=sk_true)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ref.flash_attention(q, k, v, causal=causal, window=window, sk_true=sk_true)
+    assert got.dtype == dtype and got.shape == (b, sq, h, dh)
+    # float32: the reference's tolerance; bfloat16: one rounding step apart.
+    tol = dict(rtol=1e-4, atol=2e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-5)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
+
+
+def test_flash_attention_reads_strided_inputs(cuda):
+    rng = np.random.default_rng(9)
+    qkv = torch.from_numpy(rng.normal(0, 1, (2, 77, 8 + 2 + 2, 64)).astype(np.float32)).to(cuda)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    assert not q.is_contiguous()
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=2e-5)
+
+
+def test_flash_attention_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 8, 4, 64), device=cuda)
+    k = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError):
+        fa.flash_attention(q[..., :48], k[..., :48], k[..., :48])   # dh 48
+    with pytest.raises(ValueError):
+        fa.flash_attention(q[..., ::2], k[..., ::2], k[..., ::2])   # strided head dim
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k[:, :, :1].expand(1, 8, 3, 64), k)    # 4 % 3
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError):
+        layers.chunked_attention(q, k, k, causal=True, q_offset=4)
+
+
+def test_model_forward_on_the_card_matches_the_cpu(cuda):
+    # The smoke config's head dim (16) is not one the kernel is built for: 32.
+    cfg = dataclasses.replace(get_config("qwen3-8b", smoke=True), d_head=32)
+    params = init_params(cfg, seed=0, device="cpu")
+    # 64 tokens: the CPU scan needs Sk to be a multiple of the smoke chunk (32).
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64)))
+    want = forward(params, {"tokens": toks}, cfg)
+    gparams = _to(params, cuda)
+    before = ops.launch_counts()["flash_attention"]
+    got = forward(gparams, {"tokens": toks.to(cuda)}, cfg)
+    assert ops.launch_counts()["flash_attention"] == before + cfg.n_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

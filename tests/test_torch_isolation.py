@@ -1,8 +1,9 @@
 """The port stands alone: no ``jax`` and nothing of ``repro`` in its process.
 
 A fresh interpreter imports every ``repro_torch`` module, runs the CPU
-slice end to end (save, dedup, load at bits 8 and 4, decode on compressed
-weights) and then checks ``sys.modules``. The same holds for
+slices end to end (save, dedup, load at bits 8 and 4, decode on compressed
+weights; a dense model's prefill, a checkpoint and ``ModelServer.generate``
+from it) and then checks ``sys.modules``. The same holds for
 ``chip_smoke.py``, whose source is checked for imports.
 """
 
@@ -37,6 +38,26 @@ with tempfile.TemporaryDirectory() as root:
                              np.array([[1, 2]]), 3)
         assert tuple(toks.shape) == (1, 3)
     eng.close()
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import ModelServer
+from repro_torch.launch.steps import make_prefill_step
+from repro_torch.models import init_params
+import torch
+
+cfg = get_config("internlm2-1.8b", smoke=True)
+params = init_params(cfg, seed=0, device="cpu")
+last = make_prefill_step(cfg)(params, {"tokens": torch.zeros((2, 16), dtype=torch.int64)})
+assert tuple(last.shape) == (2, cfg.vocab_size) and bool(torch.isfinite(last).all())
+with tempfile.TemporaryDirectory() as root:
+    mgr = CheckpointManager(root, device="cpu")
+    mgr.save(3, params)
+    mgr.close()
+    srv = ModelServer(cfg, root, bits=8, device="cpu")
+    toks, stats = srv.generate(srv.load(), np.array([[1, 2, 3]]), max_new_tokens=4)
+    assert toks.shape == (1, 4) and stats["tokens_per_s"] > 0
+    srv.mgr.close()
 
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))

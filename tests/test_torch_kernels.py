@@ -177,11 +177,13 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
         t_ql2.quantized_l2(torch.zeros((1, 4), device="meta"),
                            torch.zeros((3, 4), dtype=torch.uint8),
                            *(torch.zeros(3, dtype=torch.float64),) * 3)
+    with pytest.raises(ValueError, match="devices"):
+        t_ops.flash_attention(*(torch.zeros((1, 4, 2, 32), device="meta"),) * 3)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         t_ops.quantized_l2_auto(*_ql2_inputs(3, 16, 2), device="cuda")
     assert t_ops.launch_counts() == {"dequant_matmul": 0, "dequant_matmul_int4": 0,
-                                     "quantized_l2": 0}
+                                     "quantized_l2": 0, "flash_attention": 0}
 
 
 @pytest.mark.parametrize("m,k,n,sms", [(4, 2048, 1024, 132), (4, 2048, 92544, 132),
