@@ -5,7 +5,8 @@
 Phases (each one fails the run when it does not hold):
 
 1. Device: the card's name and power limit; TF32 off for matmuls and cuDNN.
-2. Build: compile the CUDA kernels from ``src/repro_torch/csrc/``.
+2. Build: compile the CUDA kernels from ``src/repro_torch/csrc/``; log the
+   bfloat16 attention kernel's registers, shared memory and spills.
 3. Kernels against their plain PyTorch versions, on the card, at the shapes
    the main path gives them; prints one ``{"kernels": [...]}`` line with
    launches, errors, times and bounds.
@@ -15,15 +16,20 @@ Phases (each one fails the run when it does not hold):
    ``quantized_l2``), load the fine-tune at ``bits=8`` and ``bits=4`` and
    greedy-decode through ``CompressedModel`` (every matmul through
    ``dequant_matmul``/``_int4``), checked against the materialized forward.
-5. ``flash_attention`` against its plain version on the card: the shapes of
-   the reference's kernel tests (float32), the internlm2 prefill shape
-   (float32 and bfloat16) and one 8192-token prompt (bfloat16), each with
+5. ``flash_attention`` against its plain version on the card, on both
+   routes: the shapes of the reference's kernel tests and the internlm2
+   prefill shape in float32 (the CUDA-core kernel) and in bfloat16 (the
+   tensor-core kernel), and one 8192-token prompt in bfloat16, each with
    kernel, plain, bound and ``scaled_dot_product_attention`` times.
 6. The model stack at the full widths and depth of internlm2-1.8b (24
    layers, bfloat16, random weights from ``SEED``): ``make_prefill_step`` on
-   4 x 2048 prompts (24 ``flash_attention`` launches); in float32, the
-   forward's logits against a ``decode_step`` loop over a 32-token prompt;
-   ``make_serve_step`` greedy decode of 16 tokens at batch 4.
+   4 x 2048 prompts (24 ``flash_attention`` launches, all on the bfloat16
+   tensor-core route), checked against the same prefill on the plain
+   attention (per layer, and in the last-token logits against the library
+   attention's distance); in float32, the forward's logits
+   (24 launches on the float32 route) against a ``decode_step`` loop over a
+   32-token prompt; ``make_serve_step`` greedy decode of 16 tokens at
+   batch 4.
 7. The store-backed server (internlm2 widths, depth cut to 2 layers):
    ``CheckpointManager.save`` (distance blocks through ``quantized_l2``),
    ``ModelServer`` ``load`` and ``generate`` at ``bits=None``, checked
@@ -42,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -87,6 +94,14 @@ FA_LONG = (1, 8192, 8192, 16, 8, 128, True, 0)
 # bfloat16; their float32 sums differ in the last bits, so a rounding may
 # land one bfloat16 step apart (2^-8 to 2^-7 relative).
 FA_BF16_TOL = (1e-2, 1e-5)
+# Phase 6 also runs the 24-layer bfloat16 prefill on the plain attention,
+# with the kernel held to FA_BF16_TOL on every layer's own inputs. The
+# kernel's last-token logits must land within FA_LOGITS_ATOL of the plain
+# prefill's, with the same argmax on every row whose top-2 margin exceeds
+# it. On an H100 the kernel's logits landed 0.1289 from the plain ones and
+# a control that rounds p to bfloat16 once (_single_bf16_p) 0.1797; the
+# limit lies between the two.
+FA_LOGITS_ATOL = 0.15
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 CONSISTENCY_LEN = 32
 # float32 forward (flash_attention) against the decode loop (plain attention
@@ -158,13 +173,40 @@ def phase_device() -> dict:
     return {"name": name, "smi": smi.splitlines()[0], "bandwidth": _bandwidth(name)}
 
 
-def phase_build() -> None:
+def _ptxas(log_text: str, kernel: str) -> dict[int, dict]:
+    """``ptxas -v``'s registers and spill bytes for each head-dim
+    instantiation ``<kernel><DH>`` in an ``nvcc`` log."""
+    out, dh = {}, None
+    for line in log_text.splitlines():
+        m = re.search(kernel + r"ILi(\d+)E", line)
+        if "Compiling entry function" in line:
+            dh = int(m.group(1)) if m else None
+            if dh is not None:
+                out[dh] = {}
+        elif dh is not None and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes (stack frame|spill stores|spill loads)", line)
+            out[dh].update({k.replace(" ", "_"): int(v) for v, k in nums})
+        elif dh is not None and "Used" in line and "registers" in line:
+            out[dh]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def phase_build() -> dict:
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
 
     t0 = time.perf_counter()
     _build.build_all()
     log(f"build: {list(_build.KERNEL_SOURCES)} in {time.perf_counter() - t0:.3f} s "
         f"({_build.BUILD_DIR.relative_to(ROOT)})")
+    stats = _ptxas(_build.build_log("flash_attention_sm90"), "flash_attn_sm90")
+    lib = fa._library("flash_attention_sm90")
+    for dh, st in sorted(stats.items()):
+        st["dynamic_smem_bytes"] = lib.flash_attention_sm90_smem_bytes(dh)
+        log(f"ptxas: flash_attn_sm90<{dh}>: {st}")
+    if sorted(stats) != list(fa.HEAD_DIMS):
+        fail(f"flash_attn_sm90 build: head dims {sorted(stats)} in the ptxas log")
+    return stats[FA_PREFILL[5]]
 
 
 def phase_kernels(dev_info: dict) -> list[dict]:
@@ -327,22 +369,47 @@ def _sdpa(q, k, v, causal: bool, window: int):
                                                             enable_gqa=True)
 
 
-def phase_flash_attention(dev_info: dict) -> dict:
-    """Phase 5: the kernel against its plain version, with times."""
+def _single_bf16_p(q, k, v, *, causal=True, window=0, sk_true=None):
+    """Phase 6's control: the plain attention with p = exp(s - max) rounded
+    once to bfloat16 before p @ v, as FlashAttention-2 and -3 round it
+    (float32 sums; l from the unrounded p). Never on the port's path."""
+    b, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, dh).float()
+    s = torch.einsum("bqkgd,bckd->bkgqc", qg, k.float()) / dh ** 0.5
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    mask = kp < (sk if sk_true is None else sk_true)
+    if causal:
+        mask = mask & (qp >= kp)
+    if window > 0:
+        mask = mask & ((qp - kp) < window)
+    s = torch.where(mask, s, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bkgqc,bckd->bkgqd", p.to(torch.bfloat16).float(), v.float())
+    o = o / p.sum(dim=-1, keepdim=True)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
+
+
+def phase_flash_attention(dev_info: dict, ptxas: dict) -> dict:
+    """Phase 5: both routes against the plain version, with times."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
 
     bw = dev_info["bandwidth"]
     rng = np.random.default_rng(SEED + 5)
     dev = torch.device("cuda")
     flush = torch.zeros(64 << 20, dtype=torch.float32, device=dev)
-    cases = [(shape, torch.float32) for shape in FA_TEST_SHAPES]
-    cases += [(FA_PREFILL, torch.float32), (FA_PREFILL, torch.bfloat16), (FA_LONG, torch.bfloat16)]
-    max_abs, main = 0.0, None
+    cases = [(shape, dtype) for dtype in (torch.float32, torch.bfloat16)
+             for shape in FA_TEST_SHAPES + [FA_PREFILL]]
+    cases.append((FA_LONG, torch.bfloat16))
+    max_abs, main = 0.0, {}
     for shape, dtype in cases:
         b, sq, sk, h, kv, dh, causal, window = shape
         q, k, v = (torch.from_numpy(rng.normal(0, 1, (b, s, n, dh)).astype(np.float32))
                    .to(dev, dtype) for s, n in ((sq, h), (sk, kv), (sk, kv)))
+        route, key = fa.ROUTES[dtype], f"flash_attention_{str(dtype).split('.')[1]}"
+        before = ops.launch_counts()[key]
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
@@ -350,9 +417,11 @@ def phase_flash_attention(dev_info: dict) -> dict:
         abs_err, ratio = _close(got, want, rtol, atol)
         name = f"flash_attention B={b} Sq={sq} Sk={sk} H={h} KV={kv} dh={dh} " \
                f"causal={causal} window={window} {str(dtype).split('.')[1]}"
-        if (got.dtype != dtype or not torch.isfinite(got).all() or ratio > 1.0):
+        if (got.dtype != dtype or not torch.isfinite(got).all() or ratio > 1.0
+                or ops.launch_counts()[key] != before + 1):
             fail(f"{name}: max abs err {abs_err:.3e}, allclose ratio {ratio:.3f} "
-                 f"(rtol {rtol}, atol {atol})")
+                 f"(rtol {rtol}, atol {atol}); route {route} launches "
+                 f"{ops.launch_counts()[key] - before}")
         big = sq * sk >= 1 << 22
         ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
                       10 if big else 20, flush)
@@ -364,38 +433,45 @@ def phase_flash_attention(dev_info: dict) -> dict:
         flops = 4 * b * h * dh * _attention_pairs(sq, sk, causal, window)
         # The bound takes the card's peak for the operand type: bfloat16 on
         # the tensor cores, float32 outside them (TF32 would miss rtol 1e-4).
-        # The kernel computes in IEEE float32 for either type, so the float32
-        # figure is printed beside the bfloat16 bound as its own field.
+        # The bfloat16 kernel splits p into hi + lo, so it issues 1.5x these
+        # operations; the extra half is printed as its own figure.
         peak = BF16_TC_PEAK if dtype == torch.bfloat16 else FP32_PEAK
         bound = max(nbytes / bw, flops / peak) * 1e3
-        f32_arith = max(nbytes / bw, flops / FP32_PEAK) * 1e3
-        log(f"shape: {name}: ms {ms:.6f} plain {plain_ms:.6f} library {lib_ms:.6f} "
-            f"bound {bound:.6f} (at {peak / 1e12:.0f} TFLOP/s; at the float32 peak "
-            f"{f32_arith:.6f}) achieved {flops / ms / 1e9:.3f} TFLOP/s "
-            f"abs_err {abs_err:.3e} ratio {ratio:.3f} (rtol {rtol} atol {atol})")
+        log(f"shape: {name} [{route}]: ms {ms:.6f} plain {plain_ms:.6f} library {lib_ms:.6f} "
+            f"bound {bound:.6f} (at {peak / 1e12:.0f} TFLOP/s, {bound / ms:.4f} of it) "
+            f"achieved {flops / ms / 1e9:.3f} TFLOP/s of the work the inputs need"
+            + (f", {1.5 * flops / ms / 1e9:.3f} issued with the split p" if esize == 2 else "")
+            + f"; kernel/library {ms / lib_ms:.3f}; abs_err {abs_err:.3e} ratio {ratio:.3f} "
+            f"(rtol {rtol} atol {atol})")
         max_abs = max(max_abs, abs_err)
-        if shape == FA_PREFILL and dtype == torch.bfloat16:
-            main = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "bytes": nbytes, "flops": flops}
+        if shape == FA_PREFILL:
+            main[dtype] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                           "bytes": nbytes, "flops": flops, "bound_ms": bound}
         del q, k, v, got, want
     del flush
     torch.cuda.empty_cache()
-    # Per internlm2-1.8b prefill: one launch per layer at the bf16 prefill shape.
+    # Per internlm2-1.8b prefill: one launch per layer at the prefill shape.
     n = _internlm2().n_layers
-    t_bytes, t_ops = n * main["bytes"] / bw * 1e3, n * main["flops"] / BF16_TC_PEAK * 1e3
-    f32_arith = max(t_bytes, n * main["flops"] / FP32_PEAK * 1e3)
-    log(f"flash_attention per prefill ({n} launches at {FA_PREFILL}, bfloat16): kernel "
-        f"{n * main['ms']:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms at the bfloat16 "
-        f"tensor-core peak, {f32_arith:.6f} ms at the float32 peak")
+    bf, f32 = main[torch.bfloat16], main[torch.float32]
+    t_bytes, t_ops = n * bf["bytes"] / bw * 1e3, n * bf["flops"] / BF16_TC_PEAK * 1e3
+    log(f"flash_attention per prefill ({n} launches at {FA_PREFILL}): bfloat16 tensor-core "
+        f"kernel {n * bf['ms']:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms on the "
+        f"{n * bf['flops']} operations the inputs need (the split p issues "
+        f"{n * bf['flops'] // 2} more); float32 kernel {n * f32['ms']:.6f} ms, bound "
+        f"{n * f32['bound_ms']:.6f} ms at the float32 peak")
     return {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:79", "launches": 0,
-        "max_abs_err": max_abs, "ms": n * main["ms"], "plain_ms": n * main["plain_ms"],
+        "max_abs_err": max_abs, "ms": n * bf["ms"], "plain_ms": n * bf["plain_ms"],
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": n * main["library_ms"],
-        "bound_f32_arith_ms": f32_arith,
+        "library_ms": n * bf["library_ms"],
+        "ms_per_launch": bf["ms"],
+        "ptxas_dh128": ptxas,
+        "f32_source": "src/repro_torch/csrc/flash_attention.cu",
+        "f32_ms": n * f32["ms"], "f32_plain_ms": n * f32["plain_ms"],
+        "f32_library_ms": n * f32["library_ms"], "f32_bound_ms": n * f32["bound_ms"],
     }
 
 
@@ -593,11 +669,13 @@ def _check_tokens(what: str, got: torch.Tensor, want: torch.Tensor, want_logits:
 def phase_model_stack() -> dict[str, int]:
     """Phase 6: internlm2-1.8b at full width and depth."""
     from repro_torch.checkpoint.manager import _flatten
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import decode_step, forward, init_cache, init_params
 
     cfg = _internlm2()
+    kernel_attention = ops.flash_attention
     rng = np.random.default_rng(SEED + 6)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -616,8 +694,9 @@ def phase_model_stack() -> dict[str, int]:
     last = prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    if counts["flash_attention"] != cfg.n_layers:
-        fail(f"prefill: {counts['flash_attention']} flash_attention launches, want {cfg.n_layers}")
+    if (counts["flash_attention_bfloat16"], counts["flash_attention_float32"]) != (cfg.n_layers, 0):
+        fail(f"prefill: flash_attention launches {counts}, want {cfg.n_layers}, all on the "
+             f"bfloat16 tensor-core route ({fa.ROUTES[torch.bfloat16]})")
     if tuple(last.shape) != (PREFILL_BATCH, cfg.vocab_size) or not torch.isfinite(last).all():
         fail(f"prefill: logits {tuple(last.shape)}, finite {bool(torch.isfinite(last).all())}")
     times = []
@@ -632,6 +711,61 @@ def phase_model_stack() -> dict[str, int]:
     log(f"prefill {PREFILL_BATCH} x {PREFILL_LEN}: {pre_s * 1e3:.6f} ms (median of 3, "
         f"{[round(t * 1e3, 3) for t in times]}), "
         f"{PREFILL_BATCH * PREFILL_LEN / pre_s:.6f} tokens/s; launches {counts}")
+
+    # A check, not a main path: the same prefill on the plain attention. At
+    # every layer the kernel also runs on the layer's own inputs and is held
+    # to FA_BF16_TOL against the plain output, which the prefill carries on.
+    # The kernel's last-token logits are held to FA_LOGITS_ATOL of the plain
+    # prefill's. Two more prefills are printed beside them and checked by
+    # nothing: the library's bf16 attention and the single-bf16-p control.
+    layer_ratios, control_ratios = [], []
+
+    def checked(q, k, v, *, causal=True, window=0, sk_true=None):
+        want = ref.flash_attention(q, k, v, causal=causal, window=window, sk_true=sk_true)
+        got = kernel_attention(q, k, v, causal=causal, window=window, sk_true=sk_true)
+        layer_ratios.append(_close(got, want, *FA_BF16_TOL)[1])
+        ctrl = _single_bf16_p(q, k, v, causal=causal, window=window, sk_true=sk_true)
+        control_ratios.append(_close(ctrl, want, *FA_BF16_TOL)[1])
+        return want
+
+    def library(q, k, v, *, causal=True, window=0, sk_true=None):
+        return _sdpa(q, k, v, causal, window).transpose(1, 2)
+
+    try:
+        ops.flash_attention = checked
+        plain_last = prefill(params, {"tokens": tokens})
+        ops.flash_attention = library
+        lib_last = prefill(params, {"tokens": tokens})
+        ops.flash_attention = _single_bf16_p
+        single_last = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    finally:
+        ops.flash_attention = kernel_attention
+
+    def dist(x):
+        d = (x.double() - plain_last.double())
+        return float(d.abs().max()), float(d.pow(2).mean().sqrt())
+
+    (abs_err, rms_err), lib_d, ctrl_d = dist(last), dist(lib_last), dist(single_last)
+    top2 = plain_last.topk(2, dim=1).values
+    margins = top2[:, 0] - top2[:, 1]
+    clear = margins > FA_LOGITS_ATOL
+    same = last.argmax(dim=1) == plain_last.argmax(dim=1)
+    readings = (f"last-token logits against the plain prefill, max abs / rms: kernel "
+                f"{abs_err:.6e} / {rms_err:.6e}, library attention {lib_d[0]:.6e} / "
+                f"{lib_d[1]:.6e}, single-bf16-p control {ctrl_d[0]:.6e} / {ctrl_d[1]:.6e} "
+                f"(FA_LOGITS_ATOL {FA_LOGITS_ATOL}); |logits| max "
+                f"{float(plain_last.abs().max()):.3f}; argmax equal {same.tolist()}, top-2 "
+                f"margins {[round(x, 4) for x in margins.tolist()]}")
+    if (len(layer_ratios) != cfg.n_layers or max(layer_ratios) > 1.0 or abs_err > FA_LOGITS_ATOL
+            or not bool(same[clear].all())):
+        fail(f"prefill against the plain attention: per-layer kernel ratios {layer_ratios} "
+             f"(FA_BF16_TOL {FA_BF16_TOL}); {readings}")
+    log(f"prefill against the plain attention ({cfg.n_layers} layers): kernel on each layer's "
+        f"inputs within FA_BF16_TOL {FA_BF16_TOL}, allclose ratio max {max(layer_ratios):.6f} "
+        f"(the single-bf16-p control's {min(control_ratios):.3f} to {max(control_ratios):.3f}); "
+        f"{readings}")
+    del plain_last, lib_last, single_last
 
     # (c) greedy serving: teacher-force a prompt, then 16 greedy tokens.
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT_LEN))).to(dev)
@@ -675,8 +809,10 @@ def phase_model_stack() -> dict[str, int]:
             lg, cache = decode_step(params, cache, {"tokens": toks[:, t:t + 1]}, t, cfg32)
             steps.append(lg)
         steps = torch.cat(steps, dim=1)
-    if f32_counts["flash_attention"] != cfg.n_layers:
-        fail(f"float32 forward: {f32_counts['flash_attention']} flash_attention launches")
+    if (f32_counts["flash_attention_bfloat16"], f32_counts["flash_attention_float32"]) != (
+            0, cfg.n_layers):
+        fail(f"float32 forward: flash_attention launches {f32_counts}, want {cfg.n_layers}, "
+             f"all on the float32 route ({fa.ROUTES[torch.float32]})")
     rtol, atol = CONSISTENCY_TOL
     abs_err, ratio = _close(steps, full, rtol, atol)
     if not torch.isfinite(full).all() or ratio > 1.0:
@@ -766,14 +902,14 @@ def main() -> int:
     except ImportError as exc:
         fail(f"the port is not beside this script ({exc}); run it from the repository root")
     t0 = time.perf_counter()
-    phase_build()
+    ptxas = phase_build()
     entries = phase_kernels(dev_info)
     log(f"kernels phase: {time.perf_counter() - t0:.3f} s")
     t1 = time.perf_counter()
     counts = phase_main_path(dev_info)
     log(f"main path phase: {time.perf_counter() - t1:.3f} s")
     t1 = time.perf_counter()
-    entries.append(phase_flash_attention(dev_info))
+    entries.append(phase_flash_attention(dev_info, ptxas))
     log(f"flash_attention phase: {time.perf_counter() - t1:.3f} s")
     for label, phase in (("model stack", phase_model_stack),
                          ("server", lambda: phase_server(dev_info))):
@@ -787,6 +923,9 @@ def main() -> int:
             fail(f"kernel {name} was not launched on any main path")
     for e in entries:
         e["launches"] = counts[e["name"]]
+        if e["name"] == "flash_attention":  # the entry's kernel is the bfloat16 route's
+            e["launches"] = counts["flash_attention_bfloat16"]
+            e["f32_launches"] = counts["flash_attention_float32"]
     bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro."))
            or m == "repro"]
     if bad:

@@ -1,12 +1,13 @@
-// Forward flash attention (grouped GQA, causal / local window), for Hopper (sm_90a).
+// Forward flash attention (grouped GQA, causal / local window) for float32
+// inputs, for Hopper (sm_90a). bfloat16 inputs take flash_attention_sm90.cu.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:79
-//   flash_attention_pallas (body _flash_kernel) -> flash_attn_fwd<T, DH>
+//   flash_attention_pallas (body _flash_kernel) -> flash_attn_fwd<float, DH>
 //
-// q (B, Sq, H, dh), k/v (B, Sk, KV, dh), float32 or bfloat16, read through
-// their strides (the last dimension contiguous); out (B, Sq, H, dh),
-// contiguous, in q's type. Query head h reads KV head h / G, G = H / KV, with
-// no repeated K/V. Per row, over the key tiles in order:
+// q (B, Sq, H, dh), k/v (B, Sk, KV, dh), float32, read through their
+// strides (the last dimension contiguous); out (B, Sq, H, dh), contiguous.
+// Query head h reads KV head h / G, G = H / KV, with no repeated K/V. Per
+// row, over the key tiles in order:
 //
 //   s = (q . k) / sqrt(dh), masked to -1e30 unless k_pos < sk_true,
 //       q_pos >= k_pos (causal) and q_pos - k_pos < window (window > 0)
@@ -24,8 +25,8 @@
 // 4 * B * H * Sq * Sk * dh operations (half of that under a causal mask)
 // against (2 * B * Sq * H + 2 * B * Sk * KV) * dh elements read or written,
 // so at the internlm2 prefill (B 4, Sq = Sk = 2048, H 16, KV 8, dh 128) it
-// does about 700 float32 operations for every byte in bfloat16: far above
-// the card's 67 TFLOP/s / 3.35 TB/s ~ 20. The
+// does about 350 float32 operations for every byte: far above the card's
+// 67 TFLOP/s / 3.35 TB/s ~ 20. The
 // reference tests hold rtol 1e-4 / atol 2e-5, so products are IEEE float32
 // FMAs on the CUDA cores (no TF32, no bf16 tensor-core products) and expf is
 // the accurate one.
@@ -49,9 +50,7 @@
 //   of the block are skipped when every row has a real key (then the TPU's
 //   sweep over them would be wiped by corr = 0, so skipping is exact). Blocks
 //   run heaviest first (the last query tiles under a causal mask).
-// * bfloat16 inputs are widened to float32 as they are staged.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -69,9 +68,7 @@ constexpr int kLDP = kBK + 4;  // padded row of the p tile
 constexpr float kMasked = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 __device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll
@@ -296,23 +293,11 @@ int launch(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const Params& p, int dh, cudaStream_t stream) {
-  switch (dh) {
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 80: return launch<T, 80>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike). Returns the CUDA
-// error of the launch (0 on success).
+// float32 q, k, v and out. Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int Sq, int Sk, int H, int KV, int dh,
+                                   int B, int Sq, int Sk, int H, int KV, int dh,
                                    long long qsb, long long qss, long long qsh,
                                    long long ksb, long long kss, long long ksh,
                                    long long vsb, long long vss, long long vsh,
@@ -322,7 +307,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   Params p{q, k, v, o, B, Sq, Sk, H, KV, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
            causal, window, sk_true, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(p, dh, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(p, dh, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (dh) {
+    case 32: return launch<float, 32>(p, s);
+    case 64: return launch<float, 64>(p, s);
+    case 80: return launch<float, 80>(p, s);
+    case 128: return launch<float, 128>(p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,0 +1,422 @@
+// Forward flash attention for bfloat16 inputs on the Hopper tensor cores
+// (sm_90a): wgmma products, K/V tiles loaded by TMA into a ring of stages.
+//
+// Replaces the TPU kernel src/repro/kernels/flash_attention.py:79
+//   flash_attention_pallas (body _flash_kernel) -> flash_attn_sm90<DH>
+// for bfloat16 q, k, v; float32 inputs take flash_attention.cu.
+//
+// q (B, Sq, H, dh), k/v (B, Sk, KV, dh) bfloat16, read through their strides
+// (the last dimension contiguous, base pointers and strides in multiples of
+// 16 bytes: TMA's rule); out (B, Sq, H, dh) bfloat16, contiguous. Query head
+// h reads KV head h / G, G = H / KV. Per row, over the key tiles in order:
+//
+//   s = (q . k) / sqrt(dh), masked to -1e30 unless k_pos < sk_true,
+//       q_pos >= k_pos (causal) and q_pos - k_pos < window (window > 0)
+//   m_new = max(m, max_k s); p = exp(s - m_new); corr = exp(m - m_new)
+//   l = l * corr + sum_k p;  acc = acc * corr + p @ v;  m = m_new
+//   out = acc / max(l, 1e-30), rounded to bfloat16
+//
+// with m starting at -1e30 (a fully masked tile adds exp(0) = 1 per key and
+// is wiped by corr = 0 at the row's first real tile; a row with no real key
+// averages v over the keys) and keys past the tensor (k_pos >= Sk) taking no
+// part (score -inf). The scores and the softmax are computed in the base-2
+// domain, s * log2(e) / sqrt(dh), which changes nothing but the rounding.
+//
+// What bounds it on this card: tensor-core operations. At the internlm2
+// prefill (B 4, Sq = Sk = 2048, H 16, KV 8, dh 128, causal) a launch needs
+// 6.9e10 operations on 50 MB, about 1,400 operations a byte, far above the
+// 295 at which the bf16 tensor cores (989 TFLOP/s) take over from memory.
+//
+// What the design does about it:
+// * A block owns 128 rows of one (batch, KV head) slab: row r is query
+//   position r / G of head kv * G + r % G, so each K/V tile serves all G
+//   heads of its KV head. The block has three warpgroups: one producer
+//   thread issues the TMA loads, and two consumer warpgroups own 64 rows
+//   each. The q tile is loaded once, by all threads, into shared memory.
+// * K/V tiles of 64 keys go through a ring of 3 stages. A 4-D tensor map
+//   over (dh, heads, positions, batch) reads the strided layout without
+//   copies; each stage completes on a "full" mbarrier (bytes) and is handed
+//   back on an "empty" one (one arrival per consumer warp). The loads of
+//   the next tiles run while the consumers compute.
+// * S = Q K^T is wgmma m64 n64 k16, Q and K both K-major in shared memory,
+//   swizzled as TMA writes them: 128-byte rows (64 columns a box) for dh 64
+//   and 128, 64-byte rows for dh 32, 32-byte rows (five boxes) for dh 80.
+// * The running max and sum stay in registers in the accumulator's layout,
+//   reduced over the 4 threads of a row with shuffles; exp2f with log2(e)
+//   folded into the scale.
+// * P is split: hi = bf16(p), lo = bf16(p - hi), and O += hi V + lo V, two
+//   wgmma with P as the register A operand and V an MN-major B operand
+//   (the transpose bit). A single bf16 p misses the reference's bf16
+//   tolerance on a few per cent of the outputs; hi + lo carries p to about
+//   16 bits, and products of bf16 values are exact in float32, so q . k
+//   needs no split.
+// * Masks are applied only on the tiles where some row of the block needs
+//   one (the diagonal, the window's edge, keys past sk_true or Sk). Key
+//   tiles masked for every row are skipped when every row has a real key
+//   (then the sweep over them would be wiped by corr = 0). Blocks run
+//   heaviest first (the last query tiles under a causal mask).
+// * Rows past Sq * G are zero in shared memory, computed and never stored.
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time (no -lcuda)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
+
+namespace {
+
+using namespace hopper;
+
+constexpr int kBQ = 128;       // rows (query position, head in group) per block
+constexpr int kBK = 64;        // keys per tile
+constexpr int kStages = 3;     // K/V ring depth
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr float kMasked = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DH>
+struct Cfg {
+  static_assert(DH == 32 || DH == 64 || DH == 80 || DH == 128, "head dim");
+  static constexpr int SW = DH % 64 == 0 ? 128 : (DH == 32 ? 64 : 32);  // bytes a swizzled row
+  static constexpr int BOX = SW / 2;                                   // columns a TMA box
+  static constexpr int NBOX = DH / BOX;                                // boxes along dh
+  static constexpr uint32_t LAYOUT = SW == 128 ? 1 : (SW == 64 ? 2 : 3);
+  static constexpr int Q_BYTES = kBQ * DH * 2;
+  static constexpr int KV_BYTES = kBK * DH * 2;  // one K or one V tile
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * kStages * KV_BYTES + 2 * kStages * 8;
+};
+
+struct Params {
+  const __nv_bfloat16* q;
+  __nv_bfloat16* o;
+  int B, Sq, Sk, H, KV;
+  long long qsb, qss, qsh;  // strides in elements: batch, sequence, head
+  int causal, window, sk_true;
+  float scale_log2;  // log2(e) / sqrt(dh)
+};
+
+template <int DH>
+__device__ __forceinline__ void pv(float (&o)[DH / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (DH == 32) wgmma_rs_n32(o, a, db);
+  else if constexpr (DH == 64) wgmma_rs_n64(o, a, db);
+  else if constexpr (DH == 80) wgmma_rs_n80(o, a, db);
+  else wgmma_rs_n128(o, a, db);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attn_sm90(const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, Params p) {
+  using C = Cfg<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* Qs = smem;
+  uint8_t* Ks = Qs + C::Q_BYTES;
+  uint8_t* Vs = Ks + kStages * C::KV_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + kStages * C::KV_BYTES);
+  uint64_t* empty = full + kStages;
+
+  const int G = p.H / p.KV;
+  const int rows = p.Sq * G;
+  const int tile = gridDim.x - 1 - blockIdx.x;  // heaviest (last) query tiles first
+  const int r0 = tile * kBQ;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+
+  // Key tiles to sweep: as in flash_attention.cu, the tiles masked for all
+  // rows are skipped only when every row of the block has a real key.
+  const int q_lo = r0 / G;
+  const int q_hi = (min(r0 + kBQ, rows) - 1) / G;
+  const int n_tiles = (p.Sk + kBK - 1) / kBK;
+  int t_lo = 0, t_hi = n_tiles;
+  const bool all_real = p.sk_true >= 1 && (p.window <= 0 || q_hi < p.sk_true - 1 + p.window);
+  if (all_real) {
+    int k_end = min(p.Sk, p.sk_true);
+    if (p.causal) k_end = min(k_end, q_hi + 1);
+    t_hi = (k_end + kBK - 1) / kBK;
+    if (p.window > 0) t_lo = max(0, q_lo - p.window + 1) / kBK;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    fence_mbar_init();
+  }
+
+  // The q tile, K-major and swizzled as a TMA box would lay it out: box
+  // c8 * 16 / SW, row r, 16-byte unit (c8 * 16 % SW) / 16. Rows past Sq * G
+  // are zero.
+  {
+    constexpr int CH = DH / 8;  // 16-byte units a row
+    const __nv_bfloat16* qb = p.q + b * p.qsb;
+    for (int idx = threadIdx.x; idx < kBQ * CH; idx += kThreads) {
+      const int r = idx / CH, c = idx - r * CH;
+      const int rr = r0 + r;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (rr < rows) {
+        const int qp = rr / G, h = kvh * G + rr % G;
+        x = *reinterpret_cast<const uint4*>(qb + qp * p.qss + h * p.qsh + c * 8);
+      }
+      const uint32_t off = (c * 16 / C::SW) * (kBQ * C::SW) + r * C::SW + (c * 16) % C::SW;
+      *reinterpret_cast<uint4*>(Qs + swizzle<C::SW>(off)) = x;
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one thread keeps the ring full.
+    if (threadIdx.x == 0) {
+      for (int t = t_lo, i = 0; t < t_hi; ++t, ++i) {
+        const int s = i % kStages;
+        mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
+#pragma unroll
+        for (int j = 0; j < C::NBOX; ++j) {
+          const int dst = s * C::KV_BYTES + j * kBK * C::SW;
+          tma_load_4d(Ks + dst, &kmap, &full[s], j * C::BOX, kvh, t * kBK, b);
+          tma_load_4d(Vs + dst, &vmap, &full[s], j * C::BOX, kvh, t * kBK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup cw owns rows 64 cw .. 64 cw + 63 of the block.
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int row0 = r0 + cw * 64 + warp * 16 + lane / 4;  // and row0 + 8
+  const int qpos[2] = {row0 / G, (row0 + 8) / G};
+  const int col = (lane % 4) * 2;  // within each 8-column group
+  const uint32_t q_base = smem_addr(Qs) + cw * 64 * C::SW;
+  constexpr uint32_t SBO = 8 * C::SW / 16;           // 8 rows
+  constexpr uint32_t V_LBO = kBK * C::SW / 16;       // next box along dh
+
+  float o[DH / 2];
+#pragma unroll
+  for (int j = 0; j < DH / 2; ++j) o[j] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+
+  for (int t = t_lo, i = 0; t < t_hi; ++t, ++i) {
+    const int s = i % kStages;
+    mbar_wait(&full[s], (i / kStages) & 1);
+    const uint32_t k_base = smem_addr(Ks + s * C::KV_BYTES);
+    const uint32_t v_base = smem_addr(Vs + s * C::KV_BYTES);
+
+    // S = Q K^T over dh in steps of 16 (32 bytes within a swizzled row).
+    float sc[kBK / 2];
+#pragma unroll
+    for (int j = 0; j < kBK / 2; ++j) sc[j] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t box = kk * 32 / C::SW, within = kk * 32 % C::SW;
+      const uint64_t da = make_desc(q_base + box * kBQ * C::SW + within, 1, SBO, C::LAYOUT);
+      const uint64_t db = make_desc(k_base + box * kBK * C::SW + within, 1, SBO, C::LAYOUT);
+      wgmma_ss_n64(sc, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // Masks, only where some row of the block needs one.
+    const int k0 = t * kBK, k_last = k0 + kBK - 1;
+    const bool need_mask = k_last >= p.Sk || k_last >= p.sk_true ||
+                           (p.causal && k_last > q_lo) ||
+                           (p.window > 0 && q_hi - k0 >= p.window);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kBK / 2; ++j) {
+      const int half = (j >> 1) & 1;
+      float x = sc[j] * p.scale_log2;
+      if (need_mask) {
+        const int kp = k0 + (j >> 2) * 8 + col + (j & 1);
+        if (kp >= p.Sk) {
+          x = -INFINITY;  // past the tensor: not a key at all
+        } else {
+          const int qp = qpos[half];
+          bool ok = kp < p.sk_true;
+          if (p.causal) ok = ok && qp >= kp;
+          if (p.window > 0) ok = ok && (qp - kp) < p.window;
+          if (!ok) x = kMasked;
+        }
+      }
+      sc[j] = x;
+      mx[half] = fmaxf(mx[half], x);
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      corr[h] = exp2f(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int j = 0; j < DH / 2; ++j) o[j] *= corr[(j >> 1) & 1];
+
+    // p, split into hi + lo, in the register layout of wgmma's A operand:
+    // for keys 16 kk .. 16 kk + 15, a[0] and a[1] are the 8-column group
+    // 2 kk (rows r, r + 8), a[2] and a[3] the group 2 kk + 1.
+    uint32_t ph[kBK / 16][4], pl[kBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int j = (2 * kk + (r >> 1)) * 4 + (r & 1) * 2;
+        const float mr = m[r & 1];
+        const float p0 = exp2f(sc[j] - mr), p1 = exp2f(sc[j + 1] - mr);
+        l[r & 1] += p0 + p1;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        const float2 hf = __bfloat1622float2(hi);
+        ph[kk][r] = bf16x2_bits(hi);
+        pl[kk][r] = bf16x2_bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+      }
+    }
+
+    // O += hi V + lo V; V is MN-major (keys are rows, dh contiguous).
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      pv<DH>(o, ph[kk], make_desc(v_base + kk * 16 * C::SW, V_LBO, SBO, C::LAYOUT));
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      pv<DH>(o, pl[kk], make_desc(v_base + kk * 16 * C::SW, V_LBO, SBO, C::LAYOUT));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int rr = row0 + 8 * h;
+    if (rr >= rows) continue;
+    const int head = kvh * G + rr % G;
+    const float den = fmaxf(l[h], 1e-30f);
+    __nv_bfloat16* orow = p.o + ((static_cast<long long>(b) * p.Sq + rr / G) * p.H + head) * DH;
+#pragma unroll
+    for (int g = 0; g < DH / 8; ++g)
+      *reinterpret_cast<__nv_bfloat162*>(orow + g * 8 + col) =
+          __floats2bfloat162_rn(o[g * 4 + 2 * h] / den, o[g * 4 + 2 * h + 1] / den);
+  }
+}
+
+// ----------------------------------------------------------------- host side
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-D map (dh, heads, positions, batch) over a (B, S, heads, dh) view with
+// element strides sb, ss, sh; boxes of `box` columns, one head, kBK
+// positions. A dimension of size 1 takes a natural stride (its coordinate is
+// always 0), so views that torch gives any stride there are accepted.
+int make_map(CUtensorMap* map, const void* base, int B, int S, int heads, int dh, long long sb,
+             long long ss, long long sh, int box, CUtensorMapSwizzle swz) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return -1;
+  if (heads == 1) sh = dh;
+  if (B == 1) sb = ss * S;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t boxes[4] = {static_cast<cuuint32_t>(box), 1, kBK, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                      strides, boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(r);
+}
+
+template <int DH>
+int launch(const Params& p, const void* k, const void* v, long long ksb, long long kss,
+           long long ksh, long long vsb, long long vss, long long vsh, cudaStream_t stream) {
+  using C = Cfg<DH>;
+  const CUtensorMapSwizzle swz = C::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : C::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap kmap, vmap;
+  int rc = make_map(&kmap, k, p.B, p.Sk, p.KV, DH, ksb, kss, ksh, C::BOX, swz);
+  if (rc != 0) return rc;
+  rc = make_map(&vmap, v, p.B, p.Sk, p.KV, DH, vsb, vss, vsh, C::BOX, swz);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_sm90<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = p.H / p.KV;
+  const long long tiles = (static_cast<long long>(p.Sq) * G + kBQ - 1) / kBQ;
+  dim3 grid(static_cast<unsigned>(tiles), p.KV, p.B);
+  flash_attn_sm90<DH><<<grid, kThreads, C::SMEM, stream>>>(kmap, vmap, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Dynamic shared memory a block of the head dim's kernel takes (0 for a
+// head dim the kernel is not built for).
+extern "C" int flash_attention_sm90_smem_bytes(int dh) {
+  switch (dh) {
+    case 32: return Cfg<32>::SMEM;
+    case 64: return Cfg<64>::SMEM;
+    case 80: return Cfg<80>::SMEM;
+    case 128: return Cfg<128>::SMEM;
+    default: return 0;
+  }
+}
+
+// bfloat16 q, k, v and out. Returns 0 on success, a CUDA error code (> 0)
+// from the launch, -1 when the driver has no TMA encoder, or -1000 - r when
+// the tensor map is refused with driver result r.
+extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
+                                        int B, int Sq, int Sk, int H, int KV, int dh,
+                                        long long qsb, long long qss, long long qsh,
+                                        long long ksb, long long kss, long long ksh,
+                                        long long vsb, long long vss, long long vsh,
+                                        int causal, int window, int sk_true, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o), B, Sq, Sk, H,
+           KV, qsb, qss, qsh, causal, window, sk_true, kLog2e / sqrtf(static_cast<float>(dh))};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 32: return launch<32>(p, k, v, ksb, kss, ksh, vsb, vss, vsh, s);
+    case 64: return launch<64>(p, k, v, ksb, kss, ksh, vsb, vss, vsh, s);
+    case 80: return launch<80>(p, k, v, ksb, kss, ksh, vsb, vss, vsh, s);
+    case 128: return launch<128>(p, k, v, ksb, kss, ksh, vsb, vss, vsh, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

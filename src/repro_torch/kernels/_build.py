@@ -4,12 +4,16 @@ Each ``csrc/<name>.cu`` file is compiled by ``nvcc`` into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/repro_torch_kernels/lib<name>-<hash>.so
+         -Xcompiler -fPIC -Xptxas -v -o build/repro_torch_kernels/lib<name>-<hash>.so
 
 The library lands in ``build/repro_torch_kernels/`` at the repository root,
-keyed by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one loads straight away. Nothing here runs at import:
-the CPU tests import every module on a machine with no ``nvcc``.
+keyed by a hash of the source, of every ``csrc/*.cuh`` header and of the
+flags, so an edited source or header rebuilds and an unchanged one loads
+straight away.
+``nvcc``'s output, with ``ptxas``'s registers, shared memory and spills
+for each kernel, is kept beside the library (:func:`build_log`). Nothing
+here runs at import: the CPU tests import every module on a machine with
+no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -22,13 +26,13 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "KERNEL_SOURCES", "build_all", "load_library"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "KERNEL_SOURCES", "build_all", "build_log", "load_library"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNEL_SOURCES = ("dequant_matmul", "quantized_l2", "flash_attention")
+KERNEL_SOURCES = ("dequant_matmul", "quantized_l2", "flash_attention", "flash_attention_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -45,7 +49,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (src, *sorted(CSRC_DIR.glob("*.cuh"))):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -70,6 +76,7 @@ def _finish(name: str, job) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent builder never loads half a file
 
 
@@ -80,6 +87,13 @@ def build_all(names=KERNEL_SOURCES) -> None:
         jobs = {name: _start(name) for name in names}
         for name, job in jobs.items():
             _finish(name, job)
+
+
+def build_log(name: str) -> str:
+    """``nvcc``'s output for the built ``csrc/<name>.cu`` (``ptxas -v``'s
+    registers, shared memory and spills a kernel); builds it if needed."""
+    build_all((name,))
+    return _target(name)[1].with_suffix(".log").read_text()
 
 
 def load_library(name: str) -> ctypes.CDLL:

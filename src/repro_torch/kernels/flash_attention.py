@@ -1,13 +1,27 @@
-"""Forward flash attention (grouped GQA, causal / local window): CUDA kernel.
+"""Forward flash attention (grouped GQA, causal / local window): CUDA kernels.
 
-``csrc/flash_attention.cu`` keeps the scores, the running max and sum and
-the accumulator on chip across the key sweep; only q, k, v and the output
-touch device memory. It reads q (B, Sq, H, dh) and k/v (B, Sk, KV, dh)
-through their strides, so no transposed or padded copy is made, and serves
-all G = H / KV query heads of a KV head from one staged K/V tile.
+Both kernels keep the scores, the running max and sum and the accumulator
+on chip across the key sweep; only q, k, v and the output touch device
+memory. They read q (B, Sq, H, dh) and k/v (B, Sk, KV, dh) through their
+strides, so no transposed or padded copy is made, and serve all G = H / KV
+query heads of a KV head from one staged K/V tile.
 
-The wrapper takes the kernel for CUDA tensors and the plain version of
-``ref.py`` for CPU tensors; a CUDA input it cannot take raises.
+The route follows the dtype, and nothing else:
+
+========  ===============================  =====================================
+dtype     kernel                           held to the plain version within
+========  ===============================  =====================================
+bfloat16  ``csrc/flash_attention_sm90.cu``  rtol 1e-2, atol 1e-5: one bf16
+          (wgmma on the bf16 tensor        rounding of the output (p split
+          cores, TMA K/V ring)             into bf16 hi + lo for p @ v)
+float32   ``csrc/flash_attention.cu``      rtol 1e-4, atol 2e-5: the
+          (IEEE float32 on the CUDA cores) reference's tolerance, which
+                                           tensor-core products would miss
+========  ===============================  =====================================
+
+The wrapper takes a kernel for CUDA tensors and the plain version of
+``ref.py`` for CPU tensors. A CUDA input that its route's kernel cannot take
+raises, and a failed build or launch raises: there is no other path.
 """
 
 from __future__ import annotations
@@ -20,28 +34,47 @@ from . import ref
 from ._build import load_library
 from .dequant_matmul import _on_cpu
 
-__all__ = ["HEAD_DIMS", "flash_attention", "launches"]
+__all__ = ["HEAD_DIMS", "ROUTES", "flash_attention", "launches"]
 
-#: Kernel launches (CUDA inputs only; CPU calls do not count).
-launches = {"flash_attention": 0}
+#: The library each dtype launches; the only dispatch there is.
+ROUTES = {torch.bfloat16: "flash_attention_sm90", torch.float32: "flash_attention"}
 
-#: Head dims the kernel is instantiated for.
+#: Kernel launches by route, keyed by its dtype's name (CUDA inputs only; CPU
+#: calls do not count). ``ops.launch_counts()`` gives them and their sum.
+launches = {"bfloat16": 0, "float32": 0}
+
+#: Head dims both kernels are instantiated for.
 HEAD_DIMS = (32, 64, 80, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = load_library("flash_attention")
+def _library(route: str) -> ctypes.CDLL:
+    lib = _libs.get(route)
+    if lib is None:
+        lib = load_library(route)
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.flash_attention_fwd.argtypes = ([p, p, p, p] + [i] * 7 + [ll] * 9
-                                            + [i, i, i, f, p])
-        lib.flash_attention_fwd.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        if route == "flash_attention":
+            fn = lib.flash_attention_fwd
+            fn.argtypes = [p, p, p, p] + [i] * 6 + [ll] * 9 + [i, i, i, f, p]
+        else:
+            fn = lib.flash_attention_sm90_fwd
+            fn.argtypes = [p, p, p, p] + [i] * 6 + [ll] * 9 + [i, i, i, p]
+        fn.restype = ctypes.c_int
+        _libs[route] = lib
+    return lib
+
+
+def _check_tma(q, k, v) -> None:
+    """The bfloat16 kernel loads K/V by TMA and q in 16-byte vectors: base
+    pointers and the strides of dimensions longer than 1 must be multiples
+    of 16 bytes (8 elements)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        bad = [d for d in range(3) if t.shape[d] > 1 and t.stride(d) % 8]
+        if t.data_ptr() % 16 or bad:
+            raise ValueError(f"flash_attention: bfloat16 {name} needs a 16-byte aligned base "
+                             f"and strides in multiples of 8 elements (TMA); got offset "
+                             f"{t.data_ptr() % 16} bytes, strides {tuple(t.stride())}")
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, sk_true=None):
@@ -51,8 +84,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, sk_true=None):
     ``k_pos < sk_true`` (default Sk), causal ``q_pos >= k_pos`` and, for
     ``window > 0``, ``q_pos - k_pos < window``; masked scores take the
     bias -1e30. Returns (B, Sq, H, dh) in q's dtype. CUDA tensors (float32
-    or bfloat16, one dtype, dh in ``HEAD_DIMS``, last dimension contiguous)
-    launch the kernel; CPU tensors take :func:`ref.flash_attention`.
+    or bfloat16, one dtype, dh in ``HEAD_DIMS``, last dimension contiguous;
+    bfloat16 also 16-byte aligned, see :func:`_check_tma`) launch the
+    kernel of their dtype's route (:data:`ROUTES`); CPU tensors take
+    :func:`ref.flash_attention`.
     """
     if _on_cpu(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal, window=window, sk_true=sk_true)
@@ -61,13 +96,16 @@ def flash_attention(q, k, v, *, causal=True, window=0, sk_true=None):
     if k.shape != (b, sk, kv, dh) or v.shape != k.shape or kv == 0 or h % kv:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} disagree")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {dh} not in {HEAD_DIMS}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
+    route = ROUTES[q.dtype]
+    if route == "flash_attention_sm90":
+        _check_tma(q, k, v)
     sk_true = sk if sk_true is None else int(sk_true)
     o = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
@@ -75,14 +113,19 @@ def flash_attention(q, k, v, *, causal=True, window=0, sk_true=None):
     if sk == 0:
         return o.zero_()
     dev = q.device
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, sk, h, kv, dh,
+            q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2), int(bool(causal)), int(window), sk_true)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _library().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
-            b, sq, sk, h, kv, dh, q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
-            int(bool(causal)), int(window), sk_true, 1.0 / dh ** 0.5, stream)
+        lib = _library(route)
+        if route == "flash_attention":
+            err = lib.flash_attention_fwd(*args, 1.0 / dh ** 0.5, stream)
+        else:
+            err = lib.flash_attention_sm90_fwd(*args, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention: CUDA launch failed with error {err}")
-    launches["flash_attention"] += 1
+        raise RuntimeError(f"flash_attention: the {route} kernel failed with error {err} "
+                           "(> 0: CUDA error; -1: no TMA encoder in the driver; "
+                           "-1000 - r: tensor map refused with driver result r)")
+    launches[str(q.dtype).removeprefix("torch.")] += 1
     return o

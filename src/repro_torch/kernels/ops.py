@@ -52,8 +52,11 @@ def resolve_device(device) -> torch.device:
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
-    return {**_dm.launches, **_ql2.launches, **_fa.launches}
+    """Kernel launches per wrapper since the last reset: ``flash_attention``
+    is that wrapper's total, ``flash_attention_<dtype>`` its launches on
+    each dtype's route (``flash_attention.ROUTES``)."""
+    fa = {f"flash_attention_{dtype}": n for dtype, n in _fa.launches.items()}
+    return {**_dm.launches, **_ql2.launches, "flash_attention": sum(fa.values()), **fa}
 
 
 def reset_launch_counts() -> None:

@@ -10,9 +10,11 @@ against their plain PyTorch versions, and the CUDA entry points against
 the same calls with ``device="cpu"``. The shapes reach the paths that
 ``chip_smoke.py`` does not: ragged N and K, the scalar loads (N % 4 or
 D % 8 not zero), more than 8 rows of x, more than 8 code rows and 4
-queries a block, and K too short to split; for ``flash_attention``, every
+queries a block, and K too short to split; for ``flash_attention``, both
+routes (bfloat16 on the tensor cores, float32 on the CUDA cores), every
 head dim, groups that do not divide the 128-row tile, strided inputs, key
-lengths short of Sk and rows that have no real key.
+lengths short of Sk, rows that have no real key, and the bfloat16 route's
+alignment rules.
 """
 
 import dataclasses
@@ -168,14 +170,45 @@ def test_flash_attention_kernel_matches_plain(cuda, b, sq, sk, h, kv, dh, causal
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
 
 
-def test_flash_attention_reads_strided_inputs(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_reads_strided_inputs(cuda, dtype):
     rng = np.random.default_rng(9)
-    qkv = torch.from_numpy(rng.normal(0, 1, (2, 77, 8 + 2 + 2, 64)).astype(np.float32)).to(cuda)
+    qkv = torch.from_numpy(rng.normal(0, 1, (2, 77, 8 + 2 + 2, 64)).astype(np.float32)).to(
+        cuda, dtype)
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
     assert not q.is_contiguous()
     got = ops.flash_attention(q, k, v, causal=True)
     want = ref.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=2e-5)
+    tol = dict(rtol=1e-4, atol=2e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-5)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
+
+
+def test_flash_attention_route_follows_the_dtype(cuda):
+    ops.reset_launch_counts()
+    for dtype, route in ((torch.bfloat16, "flash_attention_bfloat16"),
+                         (torch.float32, "flash_attention_float32"),
+                         (torch.bfloat16, "flash_attention_bfloat16")):
+        before = ops.launch_counts()
+        q = torch.ones((1, 16, 4, 64), device=cuda, dtype=dtype)
+        k = torch.ones((1, 16, 2, 64), device=cuda, dtype=dtype)
+        assert fa.flash_attention(q, k, k).dtype == dtype
+        assert ops.launch_counts() == {**before, route: before[route] + 1,
+                                       "flash_attention": before["flash_attention"] + 1}
+    assert ops.launch_counts()["flash_attention"] == 3
+    assert fa.ROUTES == {torch.bfloat16: "flash_attention_sm90", torch.float32: "flash_attention"}
+
+
+def test_flash_attention_bf16_rejects_what_tma_cannot_take(cuda):
+    base = torch.zeros((1, 8, 4, 68), device=cuda, dtype=torch.bfloat16)
+    q = base[..., 4:]  # dh 64 with a head stride of 68 elements (136 bytes)
+    k = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention(q, k, k)
+    flat = torch.zeros(8 * 2 * 64 + 4, device=cuda, dtype=torch.bfloat16)
+    k_off = flat[4:].view(1, 8, 2, 64)  # base 8 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention(q.contiguous(), k_off, k)
+    assert fa.flash_attention(q.contiguous(), k, k).shape == (1, 8, 4, 64)
 
 
 def test_flash_attention_rejects_what_it_cannot_take(cuda):

@@ -183,7 +183,9 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         t_ops.quantized_l2_auto(*_ql2_inputs(3, 16, 2), device="cuda")
     assert t_ops.launch_counts() == {"dequant_matmul": 0, "dequant_matmul_int4": 0,
-                                     "quantized_l2": 0, "flash_attention": 0}
+                                     "quantized_l2": 0, "flash_attention": 0,
+                                     "flash_attention_bfloat16": 0,
+                                     "flash_attention_float32": 0}
 
 
 @pytest.mark.parametrize("m,k,n,sms", [(4, 2048, 1024, 132), (4, 2048, 92544, 132),
