@@ -6,16 +6,24 @@ Phases (each one fails the run when it does not hold):
 
 1. Device: the card's name and power limit; TF32 off for matmuls and cuDNN.
 2. Build: compile the CUDA kernels from ``src/repro_torch/csrc/``; log the
-   bfloat16 attention kernel's registers, shared memory and spills.
+   bfloat16 attention kernel's and every ``dq_matmul_kernel``'s registers,
+   shared memory and spills (a spill fails the run), and check in the
+   ``dq_matmul_kernel`` SASS (``cuobjdump``; none found fails the run) that
+   no integer-to-float conversion instruction turns codes into floats.
 3. Kernels against their plain PyTorch versions, on the card, at the shapes
    the main path gives them; prints one ``{"kernels": [...]}`` line with
-   launches, errors, times and bounds.
+   launches, errors, times and bounds. Times are host-inclusive (CUDA
+   events around one Python call, ``ms``) and, for the matmuls and their
+   ``torch.matmul`` yardstick, also device-only (kernel durations from a
+   ``torch.profiler`` trace, ``device_ms`` and ``library_device_ms``).
 4. Main path at full width (internlm2-1.8b widths, depth cut to 2 layers):
    save a random base decoder and a seeded fine-tune through
    ``StorageEngine(device="cuda")`` (HNSW distance blocks through
    ``quantized_l2``), load the fine-tune at ``bits=8`` and ``bits=4`` and
    greedy-decode through ``CompressedModel`` (every matmul through
-   ``dequant_matmul``/``_int4``), checked against the materialized forward.
+   ``dequant_matmul``/``_int4``), checked against the materialized forward;
+   one more decode at each width is traced (``profile_steps``: the card's
+   busy share and the ``dq_matmul`` kernels' share of it).
 5. ``flash_attention`` against its plain version on the card, on both
    routes: the shapes of the reference's kernel tests and the internlm2
    prefill shape in float32 (the CUDA-core kernel) and in bfloat16 (the
@@ -148,6 +156,19 @@ def _time_ms(fn, reps: int, flush: torch.Tensor) -> float:
     return float(np.median(times))
 
 
+def _device_ms(fn, reps: int, flush: torch.Tensor, match: str | None = None) -> float:
+    """Mean device ms of ``fn`` a run, host issue left out: the summed
+    durations of the kernels it launches (those named with ``match``)
+    between L2 flushes, from a ``torch.profiler`` trace
+    (``profile_steps.kernel_ms``)."""
+    from repro_torch.launch.profile_steps import kernel_ms
+
+    try:
+        return kernel_ms(fn, reps, lambda: flush.add_(1.0), match)
+    except RuntimeError as exc:
+        fail(f"device time not measured: {exc}")
+
+
 def _close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> tuple[float, float]:
     """(max abs error, max of |err| / (atol + rtol |want|)): the second is
     <= 1 exactly when allclose(got, want, rtol, atol) holds."""
@@ -173,21 +194,58 @@ def phase_device() -> dict:
     return {"name": name, "smi": smi.splitlines()[0], "bandwidth": _bandwidth(name)}
 
 
-def _ptxas(log_text: str, kernel: str) -> dict[int, dict]:
-    """``ptxas -v``'s registers and spill bytes for each head-dim
-    instantiation ``<kernel><DH>`` in an ``nvcc`` log."""
-    out, dh = {}, None
+def _ptxas(log_text: str, pattern: str) -> dict[str, dict]:
+    """``ptxas -v``'s registers, static shared memory and spill bytes for
+    each kernel of an ``nvcc`` log whose mangled name matches ``pattern``,
+    keyed by the pattern's first group (the template arguments)."""
+    out, key = {}, None
     for line in log_text.splitlines():
-        m = re.search(kernel + r"ILi(\d+)E", line)
         if "Compiling entry function" in line:
-            dh = int(m.group(1)) if m else None
-            if dh is not None:
-                out[dh] = {}
-        elif dh is not None and "spill stores" in line:
+            m = re.search(pattern, line)
+            key = m.group(1) if m else None
+            if key is not None:
+                out[key] = {}
+        elif key is not None and "spill stores" in line:
             nums = re.findall(r"(\d+) bytes (stack frame|spill stores|spill loads)", line)
-            out[dh].update({k.replace(" ", "_"): int(v) for v, k in nums})
-        elif dh is not None and "Used" in line and "registers" in line:
-            out[dh]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            out[key].update({k.replace(" ", "_"): int(v) for v, k in nums})
+        elif key is not None and "Used" in line and "registers" in line:
+            out[key]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[key]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def _cuobjdump() -> str | None:
+    """The toolkit's ``cuobjdump``, or the copy in Triton's package."""
+    cands = [Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"]
+    try:
+        import triton
+        cands.append(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    return next((str(c) for c in cands if c.is_file()), None)
+
+
+def _sass_conversions(lib: Path, kernel: str) -> dict[str, int] | None:
+    """Integer-to-float conversions of values (``I2F``, ``I2FP``) in the
+    SASS of each function of ``lib`` whose name holds ``kernel``, by
+    mangled name; None when no ``cuobjdump`` is found. ``I2F.RP`` is not
+    counted: it is the reciprocal step of an integer division by a value
+    known only at run time (the launch plan's strides), never a code."""
+    tool = _cuobjdump()
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            if name is not None:
+                out[name] = 0
+        elif name is not None and re.search(r"\bI2F", line) and ".RP " not in line:
+            out[name] += 1
     return out
 
 
@@ -199,13 +257,28 @@ def phase_build() -> dict:
     _build.build_all()
     log(f"build: {list(_build.KERNEL_SOURCES)} in {time.perf_counter() - t0:.3f} s "
         f"({_build.BUILD_DIR.relative_to(ROOT)})")
-    stats = _ptxas(_build.build_log("flash_attention_sm90"), "flash_attn_sm90")
+    stats = {int(k): v for k, v in
+             _ptxas(_build.build_log("flash_attention_sm90"), r"flash_attn_sm90ILi(\d+)E").items()}
     lib = fa._library("flash_attention_sm90")
     for dh, st in sorted(stats.items()):
         st["dynamic_smem_bytes"] = lib.flash_attention_sm90_smem_bytes(dh)
         log(f"ptxas: flash_attn_sm90<{dh}>: {st}")
     if sorted(stats) != list(fa.HEAD_DIMS):
         fail(f"flash_attn_sm90 build: head dims {sorted(stats)} in the ptxas log")
+    dq = _ptxas(_build.build_log("dequant_matmul"), r"dq_matmul_kernelI(\w+?)EEv")
+    for args, st in sorted(dq.items()):
+        log(f"ptxas: dq_matmul_kernel<{args}>: {st}")
+    spilled = {a: st for a, st in dq.items() if st.get("spill_stores") or st.get("spill_loads")}
+    if not dq or spilled:
+        fail(f"dq_matmul_kernel build: {len(dq)} kernels in the ptxas log, spills {spilled}")
+    conv = _sass_conversions(_build.library_path("dequant_matmul"), "dq_matmul_kernel")
+    if conv is None:
+        fail("dq_matmul_kernel SASS: no cuobjdump found (CUDA toolkit or Triton's package), "
+             "so the integer-to-float conversions cannot be checked")
+    log(f"sass: I2F/I2FP conversions (I2F.RP of integer divisions aside) in each "
+        f"dq_matmul_kernel: {conv}")
+    if not conv or any(conv.values()):
+        fail(f"dq_matmul_kernel SASS: integer-to-float conversions {conv}")
     return stats[FA_PREFILL[5]]
 
 
@@ -220,7 +293,8 @@ def phase_kernels(dev_info: dict) -> list[dict]:
 
     # ---- dequant_matmul (int8 delta) and dequant_matmul_int4 (packed delta)
     for name, packed in (("dequant_matmul", False), ("dequant_matmul_int4", True)):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0}
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "device_ms": 0.0,
+               "library_device_ms": 0.0, "bytes": 0, "flops": 0}
         max_abs = 0.0
         for k, n in MATMUL_SHAPES:
             x = torch.from_numpy(rng.normal(0, 1, (BATCH, k)).astype(np.float32)).to(dev)
@@ -248,6 +322,8 @@ def phase_kernels(dev_info: dict) -> list[dict]:
             ms = _time_ms(lambda: fn(*args), 20, flush)
             plain_ms = _time_ms(lambda: plain(*args), 5, flush)
             lib_ms = _time_ms(lambda: torch.matmul(x, w), 20, flush)
+            dev_ms = _device_ms(lambda: fn(*args), 20, flush, "dq_matmul_kernel")
+            lib_dev_ms = _device_ms(lambda: torch.matmul(x, w), 20, flush)
             del w
             nbytes = k * n * (1.5 if packed else 2) + BATCH * (k + n) * 4
             # float32 operations: 5 to dequantize each weight, 2 per row of x.
@@ -255,15 +331,22 @@ def phase_kernels(dev_info: dict) -> list[dict]:
             mult = MATMUL_PER_STEP[(k, n)]
             bound = max(nbytes / bw, flops / FP32_PEAK) * 1e3
             log(f"shape: {name} M={BATCH} K={k} N={n} x{mult}/step: ms {ms:.6f} "
-                f"plain {plain_ms:.6f} library {lib_ms:.6f} bound {bound:.6f} "
+                f"device_ms {dev_ms:.6f} plain {plain_ms:.6f} library {lib_ms:.6f} "
+                f"library_device_ms {lib_dev_ms:.6f} bound {bound:.6f} "
+                f"({bound / dev_ms:.4f} of it on the device) "
                 f"abs_err {abs_err:.3e} ratio {ratio:.3f}")
             max_abs = max(max_abs, abs_err)
             tot["ms"] += mult * ms
             tot["plain_ms"] += mult * plain_ms
             tot["library_ms"] += mult * lib_ms
+            tot["device_ms"] += mult * dev_ms
+            tot["library_device_ms"] += mult * lib_dev_ms
             tot["bytes"] += mult * nbytes
             tot["flops"] += mult * flops
         t_bytes, t_ops = tot["bytes"] / bw * 1e3, tot["flops"] / FP32_PEAK * 1e3
+        log(f"{name} per decode step (15 calls): ms {tot['ms']:.6f} (library "
+            f"{tot['library_ms']:.6f}), device_ms {tot['device_ms']:.6f} (library "
+            f"{tot['library_device_ms']:.6f}), bound {max(t_bytes, t_ops):.6f}")
         entries.append({
             "name": name, "route": "cuda", "source": "src/repro_torch/csrc/dequant_matmul.cu",
             "replaces": ("src/repro/kernels/dequant_matmul.py:135" if packed
@@ -271,7 +354,8 @@ def phase_kernels(dev_info: dict) -> list[dict]:
             "launches": 0, "max_abs_err": max_abs, "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": tot["library_ms"],
+            "library_ms": tot["library_ms"], "device_ms": tot["device_ms"],
+            "library_device_ms": tot["library_device_ms"],
         })
 
     # ---- quantized_l2
@@ -486,6 +570,7 @@ def _decode_checked(eng, spec, prompt, bits: int, bw: float) -> dict:
     from repro_torch.core.loader import LoadedModel
     from repro_torch.kernels import ops
     from repro_torch.launch.compressed_serve import MaterializedProvider, greedy_decode
+    from repro_torch.launch.profile_steps import trace_compressed_decode
 
     kernel = "dequant_matmul_int4" if bits == 4 else "dequant_matmul"
     t0 = time.perf_counter()
@@ -539,6 +624,17 @@ def _decode_checked(eng, spec, prompt, bits: int, bw: float) -> dict:
         fail(f"bits={bits}: the second decode gave other tokens")
     bytes_step = provider.counters["bytes_moved"] / n_steps
     matmul_bytes = sum(provider.weight(nm).operand_nbytes for nm in provider._weights)
+    # The steady-state step traced (one more decode, after the checks above).
+    tr = trace_compressed_decode(provider, spec, prompt, STEPS,
+                                 plain_ms=decode_s / n_steps * 1e3)
+    log(f"trace bits={bits} (a step): plain {tr['plain_wall_ms']:.6f} ms, profiled "
+        f"{tr['wall_ms']:.6f} ms, device busy {tr['device_busy_ms']:.6f} ms ("
+        f"{tr['busy_share_of_plain']:.4f} of the plain step, idle "
+        f"{1 - tr['busy_share_of_plain']:.4f}), {tr['kernels']:.1f} kernels and "
+        f"{tr['host_ops']:.1f} host ops, median gap {tr['median_gap_us']:.3f} us; "
+        f"dq_matmul {tr['match_ms']:.6f} ms, {tr['match_share_of_busy']:.4f} of busy; top "
+        + ", ".join(f"{k['name'][:40]} {k['ms']:.4f} ms x{k['count']:.0f}"
+                    for k in tr["top_kernels"][:4]))
     provider.close()
 
     # The materialized forward on the card over the same bits view.

@@ -26,7 +26,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "KERNEL_SOURCES", "build_all", "build_log", "load_library"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "KERNEL_SOURCES", "build_all", "build_log", "library_path",
+           "load_library"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -92,8 +93,13 @@ def build_all(names=KERNEL_SOURCES) -> None:
 def build_log(name: str) -> str:
     """``nvcc``'s output for the built ``csrc/<name>.cu`` (``ptxas -v``'s
     registers, shared memory and spills a kernel); builds it if needed."""
+    return library_path(name).with_suffix(".log").read_text()
+
+
+def library_path(name: str) -> Path:
+    """The built shared library of ``csrc/<name>.cu``; builds it if needed."""
     build_all((name,))
-    return _target(name)[1].with_suffix(".log").read_text()
+    return _target(name)[1]
 
 
 def load_library(name: str) -> ctypes.CDLL:

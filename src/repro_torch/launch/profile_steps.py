@@ -17,30 +17,47 @@ line of the output is one JSON object with those numbers.
 ``--smoke --device cpu`` runs the same windows on the CPU at the config's
 SMOKE size and a few tokens, as a rehearsal of the script; device shares
 mean nothing there.
+
+``--compressed`` traces the compressed decode step of ``chip_smoke.py``'s
+phase 4 instead: a random base decoder at internlm2-1.8b's widths and 2
+layers and a seeded fine-tune are saved through ``StorageEngine`` (host
+numpy, about two minutes on the card's machine), the fine-tune is loaded
+at ``bits=8`` and ``bits=4`` into ``CompressedModel``, and one greedy decode
+(4 x 8 prompt, 16 tokens) is traced a window, with the share of the
+device's busy time spent in ``dq_matmul`` kernels
+(:func:`trace_compressed_decode`, which ``chip_smoke.py`` also calls).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import tempfile
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
+from pathlib import Path
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 from ..configs import get_config
 from ..kernels import ops
 from ..models import init_cache, init_params
 from .steps import make_prefill_step, make_serve_step
 
-__all__ = ["main", "summarize"]
+__all__ = ["kernel_ms", "main", "summarize", "trace_compressed_decode"]
 
 ARCH, SEED = "internlm2-1.8b", 0
 # (batch, prefill length, prompt length, serve steps): published, and --smoke.
 SIZES = {False: (4, 2048, 8, 16), True: (2, 16, 3, 2)}
+# --compressed: internlm2-1.8b's decode widths at 2 layers (chip_smoke.py's
+# phase 4), and a tiny decoder for --smoke; (batch, prompt length, steps).
+COMPRESSED = {False: (dict(d_model=2048, n_heads=16, n_kv_heads=8, d_ff=8192,
+                           vocab_size=92544, n_layers=2), (4, 8, 16)),
+              True: (dict(d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                          vocab_size=96, n_layers=2), (2, 3, 2))}
 
 
 def _sync(dev: torch.device) -> None:
@@ -63,9 +80,11 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def summarize(prof, wall_s: float, reps: int, top: int = 8) -> dict:
+def summarize(prof, wall_s: float, reps: int, top: int = 8, match: str | None = None) -> dict:
     """Device busy time, shares, kernel and host-op counts of a profiled
-    window of ``reps`` repetitions that took ``wall_s`` on the wall clock."""
+    window of ``reps`` repetitions that took ``wall_s`` on the wall clock;
+    with ``match``, also the device time of the kernels whose name holds it
+    and their share of the busy time."""
     kernels, host_ops = [], 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -81,6 +100,11 @@ def summarize(prof, wall_s: float, reps: int, top: int = 8) -> dict:
         by_name[e.name][1] += 1
     top_k = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     wall_us = wall_s * 1e6
+    extra = {}
+    if match is not None:
+        mine = sum(t for n, (t, _) in by_name.items() if match in n)
+        extra = {"match": match, "match_ms": mine / reps / 1e3,
+                 "match_share_of_busy": mine / busy_us if busy_us else 0.0}
     return {
         "wall_ms": wall_us / reps / 1e3,
         "device_busy_ms": busy_us / reps / 1e3,
@@ -91,7 +115,59 @@ def summarize(prof, wall_s: float, reps: int, top: int = 8) -> dict:
         "median_gap_us": float(np.median(gaps)) if gaps else 0.0,
         "top_kernels": [{"name": n[:90], "ms": t / reps / 1e3, "count": c / reps}
                         for n, (t, c) in top_k],
+        **extra,
     }
+
+
+def _kernels(prof) -> list[tuple[float, float, str]]:
+    """(start µs, end µs, name) of every device kernel in a trace, in order
+    (the schedule's ``ProfilerStep`` ranges, which the trace also puts on
+    the device, left out)."""
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"))
+
+
+def kernel_ms(fn, reps: int, flush, match: str | None = None, warmup: int = 5,
+              tries: int = 3) -> float:
+    """Mean device ms a call of ``fn``, host issue left out: the summed
+    durations of the kernels ``fn`` launches (those whose name holds
+    ``match``, or all but the flush's) over ``reps`` rounds of
+    (``flush()``, ``fn()``), traced by ``torch.profiler`` in the active
+    step of a schedule whose warm-up step (``warmup`` rounds, discarded)
+    absorbs the tracer's start; kernels that start before the active
+    step's first flush are not counted.
+
+    The tracer can drop whole rounds, so the mean is taken over the rounds
+    it kept: at least half of them, each with the same number of kernels
+    of ``fn`` (one, with ``match``). A trace that breaks this is taken
+    again, up to ``tries`` times, and then raises. Needs a CUDA card."""
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        flush()
+        torch.cuda.synchronize()
+    flush_names = {name for _, _, name in _kernels(prof)}
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=acts, acc_events=True,
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for rounds in (warmup, reps):
+                for _ in range(rounds):
+                    flush()
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        ks = _kernels(prof)
+        starts = [s for s, _, name in ks if name in flush_names]
+        mine = [(e - s, name) for s, e, name in ks if starts and s >= starts[0]
+                and name not in flush_names and (match is None or match in name)]
+        rounds = len(starts)
+        if (2 * rounds >= reps and mine and len(mine) % rounds == 0
+                and (match is None or len(mine) == rounds)):
+            return sum(t for t, _ in mine) / rounds / 1e3
+    names = Counter(name[:60] for _, name in mine)
+    raise RuntimeError(f"the trace holds {rounds} of {reps} flushes and {len(mine)} kernels "
+                       f"of the timed call: {dict(names)}")
 
 
 def _profiled(fn, reps: int, dev: torch.device) -> tuple[object, float]:
@@ -115,15 +191,90 @@ def _window(summary: dict, plain_ms: float, **shape) -> dict:
     return {**shape, "plain_wall_ms": plain_ms, "busy_share_of_plain": busy, **summary}
 
 
+def trace_compressed_decode(provider, spec, prompt, steps: int,
+                            plain_ms: float | None = None) -> dict:
+    """One greedy decode on ``provider`` traced: :func:`summarize` per
+    decode step (the prompt's steps included) with the ``dq_matmul``
+    kernels' share of the busy time. ``plain_ms`` is the unprofiled ms a
+    step; without it one untraced decode is timed first."""
+    from .compressed_serve import greedy_decode
+
+    dev = provider.device
+    n_steps = prompt.shape[1] - 1 + steps
+    if plain_ms is None:
+        greedy_decode(provider, spec, prompt, steps)
+        _sync(dev)
+        t0 = time.perf_counter()
+        greedy_decode(provider, spec, prompt, steps)
+        _sync(dev)
+        plain_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    prof, wall = _profiled(lambda: greedy_decode(provider, spec, prompt, steps), 1, dev)
+    return _window(summarize(prof, wall, n_steps, match="dq_matmul"), plain_ms,
+                   batch=prompt.shape[0], steps=n_steps)
+
+
+def _compressed(smoke: bool, dev: torch.device) -> dict:
+    from ..core import CompressedModel, StorageEngine
+    from .compressed_serve import DecoderSpec, decoder_architecture, init_decoder_tensors
+
+    widths, (batch, prompt_len, steps) = COMPRESSED[smoke]
+    spec = DecoderSpec(**widths)
+    base = init_decoder_tensors(spec, seed=SEED)
+    rng = np.random.default_rng(SEED + 1)
+    ft = {k: (v + rng.normal(0.0, 1e-3 * float(v.std()), v.shape)).astype(np.float32)
+          for k, v in base.items()}
+    prompt = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+        0, spec.vocab_size, (batch, prompt_len))).to(dev)
+    out = {"arch": "internlm2-1.8b widths" if not smoke else "tiny decoder",
+           "n_layers": spec.n_layers}
+    build = Path(__file__).resolve().parents[3] / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="profile_steps_store_") as root:
+        eng = StorageEngine(root, device=dev)
+        eng.save_model("base", decoder_architecture(spec), base)
+        eng.save_model("ft", decoder_architecture(spec), ft)
+        for bits in (8, 4):
+            provider = CompressedModel(eng.load_model("ft", bits=bits))
+            out[f"compressed_bits{bits}"] = trace_compressed_decode(provider, spec, prompt,
+                                                                    steps)
+            provider.close()
+        eng.close()
+    return out
+
+
+def _report(out: dict, windows) -> None:
+    for window in windows:
+        w = out[window]
+        print(f"{window}: plain {w['plain_wall_ms']:.6f} ms; profiled {w['wall_ms']:.6f} ms, "
+              f"device busy {w['device_busy_ms']:.6f} ms (busy share {w['busy_share']:.4f} "
+              f"of the profiled time, {w['busy_share_of_plain']:.4f} of the plain time; "
+              f"idle {w['idle_share']:.4f}), {w['kernels']:.1f} kernels and "
+              f"{w['host_ops']:.1f} top-level host ops a step, median gap "
+              f"{w['median_gap_us']:.3f} us"
+              + (f"; {w['match']} {w['match_ms']:.6f} ms a step, "
+                 f"{w['match_share_of_busy']:.4f} of busy" if "match" in w else ""),
+              flush=True)
+        for k in w["top_kernels"]:
+            print(f"  {k['ms']:.6f} ms x{k['count']:.1f}  {k['name']}", flush=True)
+    print(json.dumps(out), flush=True)
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--smoke", action="store_true", help="SMOKE size, a few tokens")
     p.add_argument("--device", default="cuda")
     p.add_argument("--trace", default=None, help="write the serve window's Chrome trace here")
+    p.add_argument("--compressed", action="store_true",
+                   help="trace the compressed decode step at bits 8 and 4 instead")
     args = p.parse_args(argv)
     batch, prefill_len, prompt_len, steps = SIZES[args.smoke]
 
     dev = ops.resolve_device(args.device)
+    if args.compressed:
+        out = {**_compressed(args.smoke, dev),
+               "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}
+        _report(out, ("compressed_bits8", "compressed_bits4"))
+        return out
     cfg = get_config(ARCH, smoke=args.smoke)
     params = init_params(cfg, SEED, device=dev)
     rng = np.random.default_rng(SEED + 1)
@@ -183,17 +334,7 @@ def main(argv=None) -> dict:
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
-    for window in ("prefill", "serve"):
-        w = out[window]
-        print(f"{window}: plain {w['plain_wall_ms']:.6f} ms; profiled {w['wall_ms']:.6f} ms, "
-              f"device busy {w['device_busy_ms']:.6f} ms (busy share {w['busy_share']:.4f} "
-              f"of the profiled time, {w['busy_share_of_plain']:.4f} of the plain time; "
-              f"idle {w['idle_share']:.4f}), {w['kernels']:.1f} kernels and "
-              f"{w['host_ops']:.1f} top-level host ops a step, median gap "
-              f"{w['median_gap_us']:.3f} us", flush=True)
-        for k in w["top_kernels"]:
-            print(f"  {k['ms']:.6f} ms x{k['count']:.1f}  {k['name']}", flush=True)
-    print(json.dumps(out), flush=True)
+    _report(out, ("prefill", "serve"))
     return out
 
 

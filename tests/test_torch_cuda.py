@@ -8,9 +8,10 @@ the GPU machine, which has no JAX, run
 This file imports nothing of JAX or ``repro``: the kernels are held
 against their plain PyTorch versions, and the CUDA entry points against
 the same calls with ``device="cpu"``. The shapes reach the paths that
-``chip_smoke.py`` does not: ragged N and K, the scalar loads (N % 4 or
-D % 8 not zero), more than 8 rows of x, more than 8 code rows and 4
-queries a block, and K too short to split; for ``flash_attention``, both
+``chip_smoke.py`` does not: ragged N and K, the byte loads (N % 16 or
+D % 8 not zero), more than 8 rows of x, the decode path's shapes at batch
+1 to 9, bit-identical repeats of the in-cluster K reduction, more than 8
+code rows and 4 queries a block, and K too short to split; for ``flash_attention``, both
 routes (bfloat16 on the tensor cores, float32 on the CUDA cores), every
 head dim, groups that do not divide the 128-row tile, strided inputs, key
 lengths short of Sk, rows that have no real key, and the bfloat16 route's
@@ -26,6 +27,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import CompressedModel, StorageEngine
 from repro_torch.core.hnsw import HNSWIndex
+from repro_torch.kernels import dequant_matmul as dm
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.launch.compressed_serve import DecoderSpec, greedy_decode, save_decoder
@@ -49,7 +51,8 @@ def _assert_close(got, want, rtol=1e-4):
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 130, 70), (1, 2, 3), (9, 64, 130),
-                                   (130, 384, 250), (4, 2048, 1024), (3, 1, 5)])
+                                   (130, 384, 250), (4, 2048, 1024), (3, 1, 5),
+                                   (4, 2047, 1000), (4, 2048, 1000), (2, 8190, 2056)])
 def test_dequant_matmul_kernels_match_plain(cuda, m, k, n):
     rng = np.random.default_rng(m * 1000 + k + n)
     x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32))
@@ -66,6 +69,78 @@ def test_dequant_matmul_kernels_match_plain(cuda, m, k, n):
         got4 = ops.dequant_matmul_int4(*[a.to(cuda) if torch.is_tensor(a) else a
                                          for a in args4])
         _assert_close(got4, ref.dequant_matmul_int4(*args4))
+
+
+def _dq_inputs(m, k, n, seed):
+    """x, int8 base and delta, and packed int4 delta codes, on the card."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).cuda()
+    base = torch.from_numpy(rng.integers(-128, 128, (k, n), dtype=np.int8)).cuda()
+    delta = torch.from_numpy(rng.integers(-128, 128, (k, n), dtype=np.int8)).cuda()
+    d4 = torch.from_numpy(rng.integers(0, 16, (k, n), dtype=np.uint8)).cuda()
+    return x, base, delta, ops.pack_int4(d4)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 9])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048),
+                                 (2048, 92544)])
+def test_dequant_matmul_kernels_at_the_decode_path_shapes(cuda, k, n, m):
+    """Both kernels at the compressed decode's (K, N), batch 1 to 9 (9:
+    two row groups), within rtol 1e-4 / atol 1e-5 max|y| of the plain
+    version on the card."""
+    x, base, delta, packed = _dq_inputs(m, k, n, k + n + m)
+    for fn, plain, d, scal in ((ops.dequant_matmul, ref.dequant_matmul, delta,
+                                (0.013, -11.0, 3.1e-4, -64.0)),
+                               (ops.dequant_matmul_int4, ref.dequant_matmul_int4, packed,
+                                (0.013, -11.0, 5e-4, 8.0))):
+        args = (x, base, scal[0], scal[1], d, scal[2], scal[3])
+        _assert_close(fn(*args), plain(*args))
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 8192, 2048), (9, 2048, 1024), (4, 130, 70)])
+def test_dequant_matmul_kernels_are_deterministic(cuda, m, k, n):
+    """Two launches give bit-identical y: the in-cluster K reduction adds
+    the blocks' sums in a fixed order, with no atomics."""
+    x, base, delta, packed = _dq_inputs(m, k, n, 7)
+    y1 = ops.dequant_matmul(x, base, 0.013, -11.0, delta, 3.1e-4, -64.0)
+    y2 = ops.dequant_matmul(x, base, 0.013, -11.0, delta, 3.1e-4, -64.0)
+    assert torch.equal(y1, y2)
+    z1 = ops.dequant_matmul_int4(x, base, 0.02, -129.0, packed, 0.006, 0.0)
+    z2 = ops.dequant_matmul_int4(x, base, 0.02, -129.0, packed, 0.006, 0.0)
+    assert torch.equal(z1, z2)
+
+
+@pytest.mark.parametrize("cluster", range(1, 8))
+def test_dequant_matmul_kernels_split_ragged_k_across_a_cluster(cuda, cluster):
+    """A ragged K split over a cluster of 1 to 7 blocks (the plan's kblock
+    and cluster, passed to the kernel as given): every K row is added once,
+    on both kernels and both paths (N = 256 takes 16-byte loads, N = 250
+    byte loads)."""
+    for n in (256, 250):
+        k = 64 * cluster - 6
+        assert dm.plan(4, k, n, 132).cluster == cluster
+        assert dm.plan(4, k, n, 132, packed=True).cluster == cluster
+        x, base, delta, packed = _dq_inputs(4, k, n, cluster)
+        for fn, plain, d, scal in ((ops.dequant_matmul, ref.dequant_matmul, delta,
+                                    (0.013, -11.0, 3.1e-4, -64.0)),
+                                   (ops.dequant_matmul_int4, ref.dequant_matmul_int4, packed,
+                                    (0.013, -11.0, 5e-4, 8.0))):
+            args = (x, base, scal[0], scal[1], d, scal[2], scal[3])
+            _assert_close(fn(*args), plain(*args))
+
+
+@pytest.mark.parametrize("bz,dz", [(-11.5, -63.25), (0.25, 7.5)])
+def test_dequant_matmul_fractional_zero_points_match_plain(cuda, bz, dz):
+    """Zero-points with a fraction cannot share the code-to-float
+    subtraction (``foldable`` is false), so the wrapper sends them to the
+    byte path, which runs the reference's subtractions one by one; both
+    kernels match the plain version there too."""
+    assert not dm.foldable(bz, dz, False) and not dm.foldable(bz, dz, True)
+    x, base, delta, packed = _dq_inputs(4, 2048, 1024, 11)
+    for fn, plain, d, ds in ((ops.dequant_matmul, ref.dequant_matmul, delta, 3.1e-4),
+                             (ops.dequant_matmul_int4, ref.dequant_matmul_int4, packed, 5e-4)):
+        args = (x, base, 0.013, bz, d, ds, dz)
+        _assert_close(fn(*args), plain(*args))
 
 
 def test_dequant_matmul_rejects_what_it_cannot_take(cuda):

@@ -188,13 +188,53 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
                                      "flash_attention_float32": 0}
 
 
+# The decode path's (K, N) at M = 4: q/o, k/v, gate/up, down, LM head.
+_PATH_SHAPES = [(4, 2048, 2048, 132), (4, 2048, 1024, 132), (4, 2048, 8192, 132),
+                (4, 8192, 2048, 132), (4, 2048, 92544, 132)]
+
+
 @pytest.mark.parametrize("m,k,n,sms", [(4, 2048, 1024, 132), (4, 2048, 92544, 132),
                                        (4, 8192, 2048, 132), (130, 384, 250, 132),
-                                       (1, 2, 3, 132), (4, 130, 70, 8)])
-def test_split_k_covers_k_in_even_tiles(m, k, n, sms):
-    splits, kchunk = t_dm.split_k(m, k, n, sms)
-    assert kchunk % 64 == 0 and splits >= 1
-    assert (splits - 1) * kchunk < k <= splits * kchunk
+                                       (1, 2, 3, 132), (4, 130, 70, 8)] + _PATH_SHAPES)
+def test_launch_plan_covers_k_once_and_fills_the_card(m, k, n, sms):
+    """The plan's blocks (the kernel's grid) cover every row group of 4
+    rows of x, every column and every K row exactly once (in even ranges
+    for the int4 kernel), in clusters of at most 8, and give each SM a
+    block on the decode path's shapes. The kernel gives the block of
+    cluster rank r the K rows [r * kblock, min(K, (r + 1) * kblock))."""
+    for packed in (False, True):
+        if packed and k % 2:
+            continue
+        p = t_dm.plan(m, k, n, sms, packed)
+        assert p.groups * 4 >= m > (p.groups - 1) * 4
+        assert p.tn in (2, 4, 8, 16, 32)
+        assert p.strips * 16 * p.tn >= n > (p.strips - 1) * 16 * p.tn
+        assert 1 <= p.cluster <= 8
+        ranges = [(r * p.kblock, min(k, (r + 1) * p.kblock)) for r in range(p.cluster)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == k
+        assert all(a < b for a, b in ranges)  # no block without K rows
+        assert all(b == c for (_, b), (c, _) in zip(ranges, ranges[1:]))
+        if packed:
+            assert all(a % 2 == 0 and b % 2 == 0 for a, b in ranges)
+        if (m, k, n, sms) in _PATH_SHAPES:
+            assert p.blocks >= sms
+
+
+@pytest.mark.parametrize("zp", [-129.0, -64.0, -11.0, 0.0, 8.0, 3e7, -11.5, 0.25])
+def test_code_to_float_steps_round_like_the_reference(zp):
+    """The kernels' code-to-float step, replayed in float32: the float
+    2^23 + u (u the code's byte, offset by 128 for signed int8) less 2^23
+    (+ 128) is the code exactly, and where ``foldable`` allows, less
+    2^23 (+ 128) + zp in one subtraction is bit for bit the reference's
+    ``float(code) - zp``; for zero-points with a fraction it declines."""
+    for codes, off in ((np.arange(-128, 128), 8388736.0), (np.arange(16), 8388608.0)):
+        a = np.float32(8388608.0) + (codes - (8388608.0 - off)).astype(np.float32)
+        want = codes.astype(np.float32) - np.float32(zp)
+        assert np.array_equal(a - np.float32(off), codes.astype(np.float32))
+        folded = a - (np.float32(off) + np.float32(zp))
+        assert t_dm.foldable(zp, zp, off == 8388608.0) == (zp == int(zp))
+        if t_dm.foldable(zp, zp, off == 8388608.0):
+            assert np.array_equal(folded.view(np.uint32), want.view(np.uint32))
 
 
 @pytest.mark.parametrize("b,n,d", [(2, 4, 4194304), (1, 2, 189530112), (5, 1, 2048),

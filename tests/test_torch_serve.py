@@ -267,3 +267,18 @@ def test_profile_steps_reports_both_windows(capsys):
         assert w["plain_wall_ms"] > 0 and w["wall_ms"] > 0 and w["host_ops"] > 0
         assert w["device_busy_ms"] == 0.0 and w["kernels"] == 0 and w["idle_share"] == 1.0
     assert profile_steps._union_us([(0, 2), (1, 3), (5, 6)]) == 4
+
+
+def test_profile_steps_traces_the_compressed_decode(capsys):
+    """``--compressed`` saves a decoder and its fine-tune, loads it at bits
+    8 and 4 and traces one greedy decode a window, with the dq_matmul
+    kernels' share of the busy time (0 on the CPU: no kernel runs)."""
+    from repro_torch.launch import profile_steps
+
+    out = profile_steps.main(["--compressed", "--smoke", "--device", "cpu"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out
+    for bits in (8, 4):
+        w = out[f"compressed_bits{bits}"]
+        assert w["plain_wall_ms"] > 0 and w["wall_ms"] > 0 and w["host_ops"] > 0
+        assert w["steps"] == 4 and w["match"] == "dq_matmul"
+        assert w["device_busy_ms"] == 0.0 and w["match_ms"] == 0.0 and w["idle_share"] == 1.0
