@@ -6,21 +6,30 @@ Phases (each one fails the run when it does not hold):
 
 1. Device: the card's name and power limit; TF32 off for matmuls and cuDNN.
 2. Build: compile the CUDA kernels from ``src/repro_torch/csrc/``; log the
-   bfloat16 attention kernel's and every ``dq_matmul_kernel``'s registers,
-   shared memory and spills (a spill fails the run), and check in the
-   ``dq_matmul_kernel`` SASS (``cuobjdump``; none found fails the run) that
-   no integer-to-float conversion instruction turns codes into floats.
+   bfloat16 attention kernel's, every ``dq_matmul_kernel``'s and every
+   ``ql2_kernel``'s registers, shared memory and spills (a spill fails the
+   run), and check in the ``dq_matmul_kernel`` SASS (``cuobjdump``; none
+   found fails the run) that no integer-to-float conversion instruction
+   turns codes into floats.
 3. Kernels against their plain PyTorch versions, on the card, at the shapes
    the main path gives them; prints one ``{"kernels": [...]}`` line with
    launches, errors, times and bounds. Times are host-inclusive (CUDA
-   events around one Python call, ``ms``) and, for the matmuls and their
-   ``torch.matmul`` yardstick, also device-only (kernel durations from a
-   ``torch.profiler`` trace, ``device_ms`` and ``library_device_ms``).
+   events around one Python call, ``ms``) and, for the matmuls, their
+   ``torch.matmul`` yardstick and ``quantized_l2``, also device-only
+   (kernel durations from a ``torch.profiler`` trace, ``device_ms`` and
+   ``library_device_ms``; one ``ql2_kernel`` a call, bit-identical on
+   repeat). Beside ``quantized_l2``: what the save path's host-to-device
+   copies would take, of the codes (which a CUDA index now keeps on the
+   card) and of the queries (host float64, converted to float32 and
+   uploaded on every call).
 4. Main path at full width (internlm2-1.8b widths, depth cut to 2 layers):
    save a random base decoder and a seeded fine-tune through
    ``StorageEngine(device="cuda")`` (HNSW distance blocks through
-   ``quantized_l2``), load the fine-tune at ``bits=8`` and ``bits=4`` and
-   greedy-decode through ``CompressedModel`` (every matmul through
+   ``quantized_l2`` on the indexes' device mirrors: the code bytes each
+   save uploads, for rows entering an index and for whole indexes read
+   from disk, are printed and checked, and at the end every mirror is held
+   equal to its index's host arrays), load the fine-tune at ``bits=8`` and
+   ``bits=4`` and greedy-decode through ``CompressedModel`` (every matmul through
    ``dequant_matmul``/``_int4``), checked against the materialized forward;
    one more decode at each width is traced (``profile_steps``: the card's
    busy share and the ``dq_matmul`` kernels' share of it).
@@ -271,6 +280,12 @@ def phase_build() -> dict:
     spilled = {a: st for a, st in dq.items() if st.get("spill_stores") or st.get("spill_loads")}
     if not dq or spilled:
         fail(f"dq_matmul_kernel build: {len(dq)} kernels in the ptxas log, spills {spilled}")
+    l2 = _ptxas(_build.build_log("quantized_l2"), r"ql2_kernelI(\w+?)EEv")
+    for args, st in sorted(l2.items()):
+        log(f"ptxas: ql2_kernel<{args}>: {st}")
+    spilled = {a: st for a, st in l2.items() if st.get("spill_stores") or st.get("spill_loads")}
+    if len(l2) != 4 or spilled:
+        fail(f"ql2_kernel build: {len(l2)} kernels in the ptxas log (want 4), spills {spilled}")
     conv = _sass_conversions(_build.library_path("dequant_matmul"), "dq_matmul_kernel")
     if conv is None:
         fail("dq_matmul_kernel SASS: no cuobjdump found (CUDA toolkit or Triton's package), "
@@ -359,8 +374,10 @@ def phase_kernels(dev_info: dict) -> list[dict]:
         })
 
     # ---- quantized_l2
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "copy_ms": 0.0, "bytes": 0,
-           "flops": 0}
+    from repro_torch.kernels.ops import _tensor
+
+    tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "copy_ms": 0.0,
+           "query_copy_ms": 0.0, "bytes": 0, "flops": 0}
     max_abs = 0.0
     for (b, n, d), mult in L2_SHAPES.items():
         base = rng.normal(0, 1, d).astype(np.float32)
@@ -377,13 +394,15 @@ def phase_kernels(dev_info: dict) -> list[dict]:
         args = (q, codes, scales, zps, mids)
         got = ops.quantized_l2(*args)
         want = ref.quantized_l2(*args)
+        again = ops.quantized_l2(*args)
         torch.cuda.synchronize()
         abs_err, ratio = _close(got, want, 2e-3, 0.0)
-        if (not torch.isfinite(got).all() or ratio > 1.0
+        if (not torch.isfinite(got).all() or ratio > 1.0 or not torch.equal(got, again)
                 or not torch.equal(got.argmin(dim=1), want.argmin(dim=1))):
             fail(f"quantized_l2 B={b} N={n} D={d}: max abs err {abs_err:.3e}, "
                  f"rel ratio {ratio:.3f} (rtol 2e-3), argmin "
-                 f"{got.argmin(dim=1).tolist()} vs {want.argmin(dim=1).tolist()}")
+                 f"{got.argmin(dim=1).tolist()} vs {want.argmin(dim=1).tolist()}, "
+                 f"bit-identical on repeat {torch.equal(got, again)}")
 
         def library():
             dot = q @ codes.to(torch.float32).T
@@ -397,33 +416,49 @@ def phase_kernels(dev_info: dict) -> list[dict]:
             return torch.where(scales == 0, cdist, dist).clamp_min(0)
 
         ms = _time_ms(lambda: ops.quantized_l2(*args), 10, flush)
+        # One ql2_kernel a call: kernel_ms fails on any other count.
+        dev_ms = _device_ms(lambda: ops.quantized_l2(*args), 10, flush, "ql2_kernel")
         plain_ms = _time_ms(lambda: ref.quantized_l2(*args), 3, flush)
         lib_ms = _time_ms(library, 5, flush)
+        # The save path's copies: the codes (a CUDA index now keeps them on
+        # the card) and the queries, host float64 -> float32 -> the card.
         copy_ms = _time_ms(lambda: torch.from_numpy(codes_host).to(dev), 3, flush)
+        q_host64 = q_host.astype(np.float64)
+        query_copy_ms = _time_ms(lambda: _tensor(q_host64, np.float32, torch.float32, dev), 3,
+                                 flush)
         nbytes = n * d + b * d * 4
         flops = 2 * b * n * d  # float32 c·q FMAs (the integer moments are cheaper)
         bound = max(nbytes / bw, flops / FP32_PEAK) * 1e3
         log(f"shape: quantized_l2 B={b} N={n} D={d} x{mult}/save: ms {ms:.6f} "
-            f"plain {plain_ms:.6f} library {lib_ms:.6f} bound {bound:.6f} "
-            f"host_to_device_codes_ms {copy_ms:.6f} abs_err {abs_err:.3e} ratio {ratio:.3f}")
+            f"device_ms {dev_ms:.6f} plain {plain_ms:.6f} library {lib_ms:.6f} bound "
+            f"{bound:.6f} ({bound / dev_ms:.4f} of it on the device) "
+            f"host_to_device_codes_ms {copy_ms:.6f} host_to_device_queries_ms "
+            f"{query_copy_ms:.6f} abs_err {abs_err:.3e} ratio {ratio:.3f}")
         max_abs = max(max_abs, abs_err)
         tot["ms"] += mult * ms
+        tot["device_ms"] += mult * dev_ms
         tot["plain_ms"] += mult * plain_ms
         tot["library_ms"] += mult * lib_ms
         tot["copy_ms"] += mult * copy_ms
+        tot["query_copy_ms"] += mult * query_copy_ms
         tot["bytes"] += mult * nbytes
         tot["flops"] += mult * flops
-        del q, codes, args
-    log(f"quantized_l2 per fine-tune save: kernel {tot['ms']:.6f} ms, host-to-device "
-        f"code copies {tot['copy_ms']:.6f} ms")
+        del q, codes, args, got, want, again, q_host64
     t_bytes, t_ops = tot["bytes"] / bw * 1e3, tot["flops"] / FP32_PEAK * 1e3
+    log(f"quantized_l2 per fine-tune save: kernel {tot['ms']:.6f} ms, device_ms "
+        f"{tot['device_ms']:.6f} ({max(t_bytes, t_ops) / tot['device_ms']:.4f} of the "
+        f"{max(t_bytes, t_ops):.6f} ms bound); host-to-device copies the save path would "
+        f"make: codes {tot['copy_ms']:.6f} ms (none now: the index keeps them on the card), "
+        f"queries {tot['query_copy_ms']:.6f} ms (float64 -> float32 on the host, then the copy)")
     entries.append({
         "name": "quantized_l2", "route": "cuda", "source": "src/repro_torch/csrc/quantized_l2.cu",
         "replaces": "src/repro/kernels/quantized_l2.py:82", "launches": 0,
         "max_abs_err": max_abs, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": tot["library_ms"],
+        "library_ms": tot["library_ms"], "device_ms": tot["device_ms"],
+        "host_to_device_codes_ms": tot["copy_ms"],
+        "host_to_device_queries_ms": tot["query_copy_ms"],
     })
     del flush
     torch.cuda.empty_cache()
@@ -658,8 +693,43 @@ def _decode_checked(eng, spec, prompt, bits: int, bw: float) -> dict:
     return {"launches": launched, "tokens": tokens.cpu()}
 
 
+def _uploads(what: str, before: dict, want_rows: int | None) -> None:
+    """Log (and check) the code bytes the index mirrors uploaded since
+    ``before``: rows entering an index must be ``want_rows`` bytes; a
+    whole-index upload (an index read from disk) gets its own line."""
+    from repro_torch.core.hnsw import mirror_uploads
+
+    rows = mirror_uploads["rows"] - before["rows"]
+    index = mirror_uploads["index"] - before["index"]
+    log(f"{what}: code bytes uploaded to the card for rows entering an index {rows}"
+        + ("" if want_rows is None else f" (want {want_rows})"))
+    if index:
+        log(f"{what}: code bytes uploaded to the card for whole indexes read from disk {index}")
+    if want_rows is not None and rows != want_rows:
+        fail(f"{what}: {rows} code bytes uploaded for entering rows, want {want_rows}")
+
+
+def _check_mirrors(eng) -> tuple[int, int, int]:
+    """Every index's device mirror equals its host arrays (torch.equal);
+    returns the rows checked, their code bytes and the code bytes the
+    mirrors hold on the card (their capacity: it doubles, as the host's)."""
+    checked = used = held = 0
+    for dim in eng.index_cache.dims():
+        idx = eng.index_cache.get(dim)
+        n = len(idx)
+        host = (idx._codes[:n], idx._scales[:n], idx._zps[:n].astype(np.float64), idx._mids[:n])
+        for name, dev_rows, want in zip(idx.mirror.FIELDS, idx.mirror.view(n), host):
+            if not torch.equal(dev_rows.cpu(), torch.from_numpy(want)):
+                fail(f"index dim {dim}: the device mirror's {name} differ from the host's")
+        checked += n
+        used += n * dim
+        held += idx.mirror.codes.numel()
+    return checked, used, held
+
+
 def phase_main_path(dev_info: dict) -> dict[str, int]:
     from repro_torch.core import StorageEngine
+    from repro_torch.core.hnsw import mirror_uploads
     from repro_torch.kernels import ops
     from repro_torch.launch.compressed_serve import (
         DecoderSpec,
@@ -684,22 +754,33 @@ def phase_main_path(dev_info: dict) -> dict[str, int]:
         # The main path: every count starts at 0 here and is read at the end.
         ops.reset_launch_counts()
         eng = StorageEngine(root, device="cuda")
+        up = dict(mirror_uploads)
         rep = eng.save_model("base", decoder_architecture(spec), base)
         log(f"save base: {rep.seconds:.6f} s, {rep.n_new_bases} new bases, "
             f"{rep.n_deltas} deltas, page {rep.page_bytes} bytes; "
             f"quantized_l2 launches {ops.launch_counts()['quantized_l2']}")
+        _uploads("save base", up, sum(ex["dim"] for ex in rep.explain
+                                      if ex["outcome"] == "new_base"))
         del base
         before = ops.launch_counts()["quantized_l2"]
+        up = dict(mirror_uploads)
         rep = eng.save_model("ft", decoder_architecture(spec), ft)
         l2 = ops.launch_counts()["quantized_l2"] - before
         outcomes = {ex["tensor"]: ex["outcome"] for ex in rep.explain}
         log(f"save fine-tune: {rep.seconds:.6f} s, {rep.n_new_bases} new bases, "
             f"{rep.n_deltas} deltas, page {rep.page_bytes} bytes, mean nbit "
             f"{rep.mean_nbit:.3f}; quantized_l2 launches {l2}")
+        _uploads("save fine-tune", up, 0)
         del ft
         not_delta = {k: v for k, v in outcomes.items() if v != "delta"}
         if not_delta or l2 <= 0:
             fail(f"fine-tune save: non-delta outcomes {not_delta}, quantized_l2 launches {l2}")
+        up = dict(mirror_uploads)
+        rows, used, held = _check_mirrors(eng)
+        _uploads("mirror check", up, 0)
+        log(f"index mirrors equal their host arrays: {rows} rows over "
+            f"{len(eng.index_cache.dims())} indexes; the mirrors hold {held} code bytes on "
+            f"the card for {used} bytes of rows (capacity doubling, at least 8 rows)")
         results = {bits: _decode_checked(eng, spec, prompt, bits, dev_info["bandwidth"])
                    for bits in (8, 4)}
         counts = ops.launch_counts()

@@ -2292,7 +2292,8 @@ class StorageEngine:
                 payload = unframe_index(
                     self.fs.read_bytes(path, site="index.scrub"), path
                 )
-                HNSWIndex.from_bytes(payload, device=self.device)
+                # A parse check: on the CPU, so no index is uploaded to the card.
+                HNSWIndex.from_bytes(payload, device="cpu")
                 report["indexes"][dim] = "ok"
             except Exception as exc:
                 report["indexes"][dim] = f"corrupt: {exc}"

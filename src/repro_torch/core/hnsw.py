@@ -17,10 +17,12 @@ uses it:
 Graph traversal is host-side control flow (as in the paper's CPU extension);
 only the distance computation is a dense batched op. The index's ``device``
 (not serialized) says where :meth:`HNSWIndex._distance_block` runs: on a
-CUDA device every block goes through the kernel, with the codes copied from
-the host arrays for each call; on the CPU it is the numpy decomposed form.
-The per-candidate ``_distances`` of the graph walk stay in numpy on the host
-either way, as in the reference.
+CUDA device every block goes through the kernel, which reads the vertex
+payload from a device mirror of the host arrays (:class:`CodeMirror`: each
+row is uploaded once, when it enters the index, or once per index when it
+is read from bytes); on the CPU it is the numpy decomposed form and there
+is no mirror. The per-candidate ``_distances`` of the graph walk stay in
+numpy on the host either way, as in the reference.
 
 Hot-path design (vs the seed implementation, frozen in
 ``repro.core.hnsw_ref`` of the reference package as the parity oracle):
@@ -94,12 +96,13 @@ import math
 import pickle
 
 import numpy as np
+import torch
 
 from .quantize import QuantMeta, quantize_linear, quantize_linear_batch
 from ..kernels import ops
 from ..obs.metrics import default_registry
 
-__all__ = ["HNSWIndex", "quantized_l2_batch"]
+__all__ = ["CodeMirror", "HNSWIndex", "mirror_uploads", "quantized_l2_batch"]
 
 # Process-wide HNSW counters (docs/observability.md), summed over every
 # index in the process. Increments are batched (one .inc(n) per distance
@@ -123,10 +126,72 @@ _M_INSERTS = _REG.counter(
 
 _EMPTY_IDS = np.empty(0, dtype=np.int64)
 
+#: Code bytes uploaded by every :class:`CodeMirror` of the process: rows
+#: that entered an index (``"rows"``) and whole indexes read from bytes
+#: (``"index"``).
+mirror_uploads = {"rows": 0, "index": 0}
+
+
+class CodeMirror:
+    """Device copy of the vertex payload that the distance kernel reads.
+
+    ``codes`` (cap, dim) uint8 and ``scales``, ``zps``, ``mids`` (cap,)
+    float64, row for row the index's host arrays, on ``device`` (any torch
+    device). Rows are uploaded once: :meth:`write` when they enter the
+    index, :meth:`load` when a whole index is read from bytes; growth and
+    compaction move rows on the device. The code bytes of each kind of
+    upload are counted in :data:`mirror_uploads`.
+    """
+
+    FIELDS = ("codes", "scales", "zps", "mids")
+
+    def __init__(self, dim: int, device):
+        self.device = torch.device(device)
+        self.codes = torch.empty((0, dim), dtype=torch.uint8, device=self.device)
+        self.scales, self.zps, self.mids = (
+            torch.empty((0,), dtype=torch.float64, device=self.device) for _ in range(3))
+
+    def grow(self, cap: int, n: int) -> None:
+        """Capacity ``cap`` rows, keeping rows [0, n) (copied on the device)."""
+        for name in self.FIELDS:
+            old = getattr(self, name)
+            new = torch.empty((cap, *old.shape[1:]), dtype=old.dtype, device=self.device)
+            new[:n] = old[:n]
+            setattr(self, name, new)
+
+    def _upload(self, start: int, codes, scales, zps, mids, kind: str) -> None:
+        rows = [np.asarray(v, dtype=np.float64).reshape(-1) for v in (scales, zps, mids)]
+        stop = start + rows[0].size
+        codes = np.asarray(codes, dtype=np.uint8).reshape(rows[0].size, self.codes.shape[1])
+        self.codes[start:stop] = torch.from_numpy(codes)
+        for name, row in zip(self.FIELDS[1:], rows):
+            getattr(self, name)[start:stop] = torch.from_numpy(row)
+        mirror_uploads[kind] += codes.nbytes
+
+    def write(self, start: int, codes, scales, zps, mids) -> None:
+        """Rows entering the index at ``start`` (uploaded here, once)."""
+        self._upload(start, codes, scales, zps, mids, "rows")
+
+    def load(self, codes, scales, zps, mids) -> None:
+        """A whole index read from bytes, at rows [0, len(codes))."""
+        self._upload(0, codes, scales, zps, mids, "index")
+
+    def gather(self, keep: np.ndarray) -> None:
+        """Keep rows ``keep`` in that order (compaction), on the device."""
+        idx = torch.from_numpy(np.asarray(keep, dtype=np.int64)).to(self.device)
+        for name in self.FIELDS:
+            setattr(self, name, getattr(self, name).index_select(0, idx))
+
+    def view(self, n: int) -> tuple[torch.Tensor, ...]:
+        """(codes, scales, zps, mids) of rows [0, n), contiguous views."""
+        return tuple(getattr(self, name)[:n] for name in self.FIELDS)
+
+
 def _offload_distances(queries, codes, scales, zps, mids, device):
     """One (B, D)-vs-(N, D) distance block through the CUDA kernel on
-    ``device``; returns the (B, N) float64 distances. Kept as a
-    module-level hook so tests can stub it to verify the seam is used."""
+    ``device``: host queries against the index's device-resident codes and
+    quantization rows (tensors); returns the (B, N) float64 distances. Kept
+    as a module-level hook so tests can stub it to verify the seam is used."""
     return ops.quantized_l2_auto(queries, codes, scales, zps, mids,
                                  device=device)
 
@@ -191,6 +256,8 @@ class HNSWIndex:
         self.ef_construction = ef_construction
         self.ml = 1.0 / math.log(m)
         self._rng = np.random.default_rng(seed)
+        # On a CUDA index the kernel reads the payload from this mirror.
+        self.mirror = CodeMirror(dim, self.device) if self.device.type == "cuda" else None
         # Vertex payloads in capacity-doubling arrays; rows [0, _n) are live.
         self._n = 0
         self._cap = 0
@@ -252,6 +319,8 @@ class HNSWIndex:
             new = alloc(shape, dtype=old.dtype)
             new[: self._n] = old[: self._n]
             setattr(self, name, new)
+        if self.mirror is not None:
+            self.mirror.grow(cap, self._n)
         self._cap = cap
 
     # ------------------------------------------------------------ vertex I/O
@@ -311,7 +380,8 @@ class HNSWIndex:
         """(B, n) float64 distance matrix: query rows vs the first ``n`` codes.
 
         On a CUDA index every block goes through the ``quantized_l2``
-        kernel via :func:`_offload_distances`, whatever its size. On the
+        kernel via :func:`_offload_distances`, whatever its size, on the
+        device mirror's first ``n`` rows (no code bytes are copied). On the
         CPU it is the decomposed form as one float32 gemm plus O(B·n)
         float64 combine against the cached per-vertex norms.
         """
@@ -320,10 +390,7 @@ class HNSWIndex:
             return np.zeros((q2.shape[0], 0), dtype=np.float64)
         _M_DIST_EVALS.inc(q2.shape[0] * n)
         if self.device.type == "cuda":
-            out = _offload_distances(
-                q2, self._codes[:n], self._scales[:n], self._zps[:n],
-                self._mids[:n], self.device,
-            )
+            out = _offload_distances(q2, *self.mirror.view(n), self.device)
             return np.maximum(out, 0.0, out=out)
         qsq = np.einsum("bd,bd->b", q2, q2)
         qsum = q2.sum(axis=1)
@@ -521,6 +588,8 @@ class HNSWIndex:
         self._cross[vid] = (
             -meta.mid if meta.scale == 0.0 else meta.scale * meta.zero_point
         )
+        if self.mirror is not None:
+            self.mirror.write(vid, codes, meta.scale, meta.zero_point, meta.mid)
         self._n = vid + 1
         _M_INSERTS.inc()
         level = self._draw_level()
@@ -759,6 +828,9 @@ class HNSWIndex:
         if const.any():
             cross = np.where(const, -np.asarray(mids, dtype=np.float64), cross)
         self._cross[n0:n0 + b] = cross
+        if self.mirror is not None:
+            # Before the distance blocks below: their columns reach n0 + end.
+            self.mirror.write(n0, codes, scales, zps, mids)
         self._n = n0 + b
 
         levels = [self._draw_level() for _ in range(b)]
@@ -898,6 +970,8 @@ class HNSWIndex:
         self._mids = self._mids[live_old]
         self._norms = self._norms[live_old]
         self._cross = self._cross[live_old]
+        if self.mirror is not None:
+            self.mirror.gather(live_old)
         self._vepoch = np.zeros(nlive, dtype=np.int64)
         self._epoch = 0
         self._deleted = np.zeros(nlive, dtype=bool)
@@ -968,6 +1042,8 @@ class HNSWIndex:
         idx._scales[:n] = state["scales"]
         idx._zps[:n] = state["zps"]
         idx._mids[:n] = state["mids"]
+        if idx.mirror is not None:
+            idx.mirror.load(idx._codes[:n], idx._scales[:n], idx._zps[:n], idx._mids[:n])
         idx._n = n
         norms = state.get("norms")
         if norms is not None:

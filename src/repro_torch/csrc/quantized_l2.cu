@@ -1,7 +1,7 @@
 // Batched quantized squared-L2 distances, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/quantized_l2.py:
-//   quantized_l2_pallas (body _ql2_kernel) -> ql2_moments + ql2_combine
+//   quantized_l2_pallas (:82, body _ql2_kernel) -> ql2_kernel<QB, VEC>
 //
 // B float32 queries (B, D) against N rows of uint8 codes (N, D), row n
 // dequantizing as (c - z_n) * s_n, or the constant mid_n when s_n == 0.
@@ -16,24 +16,40 @@
 // true dimension (the reference's d_true).
 //
 // The shapes are the opposite of the TPU kernel's: the save-path probe
-// sends B <= 4 queries against N <= 6 codes rows of D = 2M .. 190M elements.
-// What bounds it: every code byte and query element is used for a handful
-// of integer and float operations, so the kernel is bound by the bytes of
-// the codes (N*D) and queries (B*D*4) over device memory bandwidth.
+// sends B <= 4 queries against N <= 8 code rows of D = 2M .. 190M elements
+// (the brute-force index scan, N up to 4096 rows of small D, must stay
+// right but is not what the design is for). What bounds it: every code
+// byte and query element is used by a handful of operations, so the bytes
+// of the codes (N*D) and the float32 queries (4*B*D) over device memory.
 //
 // What the design does about it:
-// * D is split across blocks (gridDim.x chunks, sized in the wrapper to
-//   fill the 132 SMs several times over). A block owns up to 8 code rows
-//   and 4 queries, reads each query chunk once for all its rows and each
-//   code chunk once for all its queries, 8 elements per thread per step
-//   (8-byte code loads, 16-byte query loads) when D % 8 == 0.
-// * sum and sq are exact integers: int32 within a thread (the wrapper keeps
-//   a thread's share of a chunk below 32768 elements, so 255^2 * share fits),
-//   int64 across threads and chunks. dot is float32 within a chunk and
-//   float64 across chunks; |q|^2 and Sq are float64 throughout.
-// * Each block writes its chunk's partial moments; ql2_combine sums the
-//   chunks in a fixed order and applies the s == 0 -> mid rule, the clamp
-//   and the D z^2 term in float64 (deterministic, no atomics).
+// * One launch a call. A block owns a tile of 4 code rows by QB queries
+//   (QB = 1, 2 or 4, chosen by B: no FMA on a query that is not there) and
+//   one contiguous chunk of D; the wrapper's plan (kernels/quantized_l2.py
+//   `plan`) sizes the chunks so that a tile's blocks make one wave over
+//   the card. Each block writes its partial moments; the block that
+//   finishes a tile last (a fenced atomic ticket, which it resets) adds
+//   the tile's partials in chunk order and writes the distances: a fixed
+//   order, so the result is bit-identical on repeat. A tile of a single
+//   chunk writes its distances straight away.
+// * 16-byte loads: a step is 16 elements a thread, one 16-byte load of
+//   codes a row and four of each query, all issued before any is used.
+//   D % 16 != 0 or unaligned operands take element loads (VEC = false, the
+//   general path, QB = 4).
+// * Codes become floats by one byte permute with 0x4B000000 (passed as an
+//   argument so the selector keeps the permute's immediate; as in
+//   dequant_matmul.cu) and one exact float subtraction of 2^23: no I2F.
+//   sum and sq come from __dp4a, four codes an instruction, exact in
+//   uint32 within a thread (the plan keeps a thread's share of D at most
+//   32768 elements: 32768 * 255^2 < 2^31).
+// * Precision: c.q, q.q and Sq are summed in float32 over a step's 16
+//   elements and the step sums in float64, so the float32 error is that of
+//   16 terms, not of a thread's whole share (on the element path all three
+//   are float64 throughout); the integer moments are exact. Across threads
+//   and blocks all sums are float64 in a fixed order, and the combination
+//   is float64. Where a query nearly coincides with a row (distance ~1e-4
+//   of |q|^2), this holds rtol 2e-3 against the dense float64 plain
+//   version (tests/test_torch_kernels.py replays it; tests/test_torch_cuda.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,203 +58,242 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowsT = 8;     // code rows per block
-constexpr int kQueriesT = 4;  // queries per block
-constexpr int kVec = 8;       // elements per thread per step on the vector path
-// Partial values a thread reduces: dot[rows][queries], sum[rows], sq[rows],
-// qsq[queries], qsum[queries].
-constexpr int kNDot = kRowsT * kQueriesT;
+constexpr int kStep = 16;  // elements a thread a step on the 16-byte path
+constexpr int kRows = 4;   // code rows a tile (8 spilled, or ran slower: PERF.md)
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ long long warp_sum(long long v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
+  return v;  // the total in lane 0
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads) ql2_moments(
+// The four code bytes of `w` as floats: the byte permute makes 2^23 + c,
+// and subtracting 2^23 leaves c, exact.
+__device__ __forceinline__ void code_floats(uint32_t w, uint32_t magic, float* f) {
+  f[0] = __int_as_float(__byte_perm(w, magic, 0x7440)) - 8388608.f;
+  f[1] = __int_as_float(__byte_perm(w, magic, 0x7441)) - 8388608.f;
+  f[2] = __int_as_float(__byte_perm(w, magic, 0x7442)) - 8388608.f;
+  f[3] = __int_as_float(__byte_perm(w, magic, 0x7443)) - 8388608.f;
+}
+
+// sum_e x[e] * y[e] over a step's 16 elements, four chains of four.
+__device__ __forceinline__ float dot16(const float (&x)[kStep], const float (&y)[kStep]) {
+  float a[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    a[j] = x[4 * j] * y[4 * j];
+#pragma unroll
+    for (int e = 1; e < 4; ++e) a[j] = fmaf(x[4 * j + e], y[4 * j + e], a[j]);
+  }
+  return (a[0] + a[1]) + (a[2] + a[3]);
+}
+
+// sum_e x[e] over a step's 16 elements, in the same order.
+__device__ __forceinline__ float sum16(const float (&x)[kStep]) {
+  float a[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a[j] = (x[4 * j] + x[4 * j + 1]) + (x[4 * j + 2] + x[4 * j + 3]);
+  return (a[0] + a[1]) + (a[2] + a[3]);
+}
+
+// tot[k] = the block's sum of v[k] over its threads, for k < P: warp
+// shuffles, then the warps' sums in warp order (a fixed order).
+template <int P>
+__device__ __forceinline__ void block_sum(const double (&v)[P], double (&red)[kWarps][P],
+                                          double* tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const double s = warp_sum(v[k]);
+    if (lane == 0) red[warp][k] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < P) {
+    double s = 0.0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
+    tot[threadIdx.x] = s;
+  }
+  __syncthreads();
+}
+
+// Partial moments of a tile, in this order: dot[kRows][QB], qsq[QB],
+// qsum[QB], sum[kRows], sq[kRows].
+template <int QB>
+struct Layout {
+  static constexpr int kDot = 0, kQsq = kRows * QB, kQsum = kQsq + QB, kSum = kQsum + QB,
+                       kSq = kSum + kRows, kP = kSq + kRows;
+};
+
+template <int QB, bool VEC>
+__global__ void __launch_bounds__(kThreads, QB == 4 ? 1 : 2) ql2_kernel(
     const float* __restrict__ q, const uint8_t* __restrict__ codes,
-    int B, int N, long long D, long long chunk,
-    float* __restrict__ dotp, long long* __restrict__ sump, long long* __restrict__ sqp,
-    double* __restrict__ qsqp, double* __restrict__ qsump) {
-  const int c = blockIdx.x;
-  const int r0 = blockIdx.y * kRowsT, nr = min(kRowsT, N - r0);
-  const int b0 = blockIdx.z * kQueriesT, nb = min(kQueriesT, B - b0);
+    const double* __restrict__ scales, const double* __restrict__ zps,
+    const double* __restrict__ mids, double* __restrict__ out, double* __restrict__ part,
+    unsigned* __restrict__ tickets, int B, int N, long long D, long long chunk,
+    uint32_t magic) {
+  constexpr int RB = kRows;
+  using L = Layout<QB>;
+  const int tiles_r = (N + RB - 1) / RB, tiles = tiles_r * ((B + QB - 1) / QB);
+  const int nchunks = gridDim.x / tiles;
+  // Row tiles vary fastest, so blocks that read the same query chunk run together.
+  const int tile = blockIdx.x % tiles, c = blockIdx.x / tiles;
+  const int r0 = (tile % tiles_r) * RB, nr = min(RB, N - r0);
+  const int b0 = (tile / tiles_r) * QB, nb = min(QB, B - b0);
   const long long beg = static_cast<long long>(c) * chunk;
   const long long end = min(D, beg + chunk);
 
-  float dot[kRowsT][kQueriesT];
-  int isum[kRowsT], isq[kRowsT];
-  double qsq[kQueriesT], qsum[kQueriesT];
+  const int t = threadIdx.x;
+  double dot[RB][QB], qsq[QB], qsum[QB];
+  uint32_t isum[RB], isq[RB];
 #pragma unroll
-  for (int r = 0; r < kRowsT; ++r) {
-    isum[r] = 0;
-    isq[r] = 0;
+  for (int r = 0; r < RB; ++r) {
+    isum[r] = isq[r] = 0u;
 #pragma unroll
-    for (int b = 0; b < kQueriesT; ++b) dot[r][b] = 0.f;
+    for (int b = 0; b < QB; ++b) dot[r][b] = 0.0;
   }
 #pragma unroll
-  for (int b = 0; b < kQueriesT; ++b) qsq[b] = qsum[b] = 0.0;
+  for (int b = 0; b < QB; ++b) qsq[b] = qsum[b] = 0.0;
 
-  if (VEC) {
-    for (long long d = beg + static_cast<long long>(threadIdx.x) * kVec; d < end;
-         d += static_cast<long long>(kThreads) * kVec) {
-      float qv[kQueriesT][kVec];
+  if constexpr (VEC) {
+    for (long long d = beg + static_cast<long long>(t) * kStep; d < end;
+         d += static_cast<long long>(kThreads) * kStep) {
+      float qv[QB][kStep];
+      uint4 cw[RB];
 #pragma unroll
-      for (int b = 0; b < kQueriesT; ++b) {
+      for (int b = 0; b < QB; ++b) {
         if (b < nb) {
           const float4* p = reinterpret_cast<const float4*>(q + (b0 + b) * D + d);
-          const float4 lo = __ldg(p), hi = __ldg(p + 1);
-          qv[b][0] = lo.x; qv[b][1] = lo.y; qv[b][2] = lo.z; qv[b][3] = lo.w;
-          qv[b][4] = hi.x; qv[b][5] = hi.y; qv[b][6] = hi.z; qv[b][7] = hi.w;
 #pragma unroll
-          for (int e = 0; e < kVec; ++e) {
-            const double v = qv[b][e];
-            qsq[b] = fma(v, v, qsq[b]);
-            qsum[b] += v;
+          for (int j = 0; j < 4; ++j) {
+            const float4 v = __ldg(p + j);
+            qv[b][4 * j] = v.x;
+            qv[b][4 * j + 1] = v.y;
+            qv[b][4 * j + 2] = v.z;
+            qv[b][4 * j + 3] = v.w;
           }
-        } else {
-#pragma unroll
-          for (int e = 0; e < kVec; ++e) qv[b][e] = 0.f;
         }
       }
 #pragma unroll
-      for (int r = 0; r < kRowsT; ++r) {
+      for (int r = 0; r < RB; ++r)
+        if (r < nr) cw[r] = __ldg(reinterpret_cast<const uint4*>(codes + (r0 + r) * D + d));
+#pragma unroll
+      for (int b = 0; b < QB; ++b) {
+        if (b < nb) {
+          qsq[b] += static_cast<double>(dot16(qv[b], qv[b]));
+          qsum[b] += static_cast<double>(sum16(qv[b]));
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
         if (r < nr) {
-          const uint2 w = __ldg(reinterpret_cast<const uint2*>(codes + (r0 + r) * D + d));
+          const uint32_t w[4] = {cw[r].x, cw[r].y, cw[r].z, cw[r].w};
+          float cf[kStep];
 #pragma unroll
-          for (int e = 0; e < kVec; ++e) {
-            const int cv = static_cast<int>(((e < 4 ? w.x : w.y) >> (8 * (e & 3))) & 0xffu);
-            isum[r] += cv;
-            isq[r] += cv * cv;
-            const float cf = static_cast<float>(cv);
-#pragma unroll
-            for (int b = 0; b < kQueriesT; ++b) dot[r][b] = fmaf(cf, qv[b][e], dot[r][b]);
+          for (int j = 0; j < 4; ++j) {
+            isum[r] = __dp4a(w[j], 0x01010101u, isum[r]);
+            isq[r] = __dp4a(w[j], w[j], isq[r]);
+            code_floats(w[j], magic, cf + 4 * j);
           }
+#pragma unroll
+          for (int b = 0; b < QB; ++b)
+            if (b < nb) dot[r][b] += static_cast<double>(dot16(cf, qv[b]));
         }
       }
     }
   } else {
-    for (long long d = beg + threadIdx.x; d < end; d += kThreads) {
-      float qv[kQueriesT];
+    for (long long d = beg + t; d < end; d += kThreads) {
+      double qd[QB];
 #pragma unroll
-      for (int b = 0; b < kQueriesT; ++b) {
-        qv[b] = b < nb ? q[(b0 + b) * D + d] : 0.f;
-        const double v = qv[b];
-        qsq[b] = fma(v, v, qsq[b]);
-        qsum[b] += v;
+      for (int b = 0; b < QB; ++b) {
+        qd[b] = b < nb ? static_cast<double>(q[(b0 + b) * D + d]) : 0.0;
+        qsq[b] = fma(qd[b], qd[b], qsq[b]);
+        qsum[b] += qd[b];
       }
 #pragma unroll
-      for (int r = 0; r < kRowsT; ++r) {
+      for (int r = 0; r < RB; ++r) {
         if (r < nr) {
-          const int cv = codes[(r0 + r) * D + d];
+          const uint32_t cv = codes[(r0 + r) * D + d];
           isum[r] += cv;
           isq[r] += cv * cv;
-          const float cf = static_cast<float>(cv);
+          const double cd = static_cast<double>(cv);
 #pragma unroll
-          for (int b = 0; b < kQueriesT; ++b) dot[r][b] = fmaf(cf, qv[b], dot[r][b]);
+          for (int b = 0; b < QB; ++b) dot[r][b] = fma(cd, qd[b], dot[r][b]);
         }
       }
     }
   }
 
-  // Block reduction: warp shuffles, then one shared slot per warp.
-  __shared__ float s_dot[kWarps][kNDot];
-  __shared__ long long s_int[kWarps][2 * kRowsT];
-  __shared__ double s_q[kWarps][2 * kQueriesT];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // Block totals: warp shuffles, then the warps' sums in warp order.
+  double v[L::kP];
 #pragma unroll
-  for (int r = 0; r < kRowsT; ++r) {
+  for (int r = 0; r < RB; ++r) {
 #pragma unroll
-    for (int b = 0; b < kQueriesT; ++b) {
-      const float v = warp_sum(dot[r][b]);
-      if (lane == 0) s_dot[warp][r * kQueriesT + b] = v;
-    }
-    const long long vs = warp_sum(static_cast<long long>(isum[r]));
-    const long long vq = warp_sum(static_cast<long long>(isq[r]));
-    if (lane == 0) {
-      s_int[warp][r] = vs;
-      s_int[warp][kRowsT + r] = vq;
-    }
+    for (int b = 0; b < QB; ++b) v[L::kDot + r * QB + b] = dot[r][b];
+    v[L::kSum + r] = static_cast<double>(isum[r]);
+    v[L::kSq + r] = static_cast<double>(isq[r]);
   }
 #pragma unroll
-  for (int b = 0; b < kQueriesT; ++b) {
-    const double a = warp_sum(qsq[b]);
-    const double s = warp_sum(qsum[b]);
-    if (lane == 0) {
-      s_q[warp][b] = a;
-      s_q[warp][kQueriesT + b] = s;
-    }
+  for (int b = 0; b < QB; ++b) {
+    v[L::kQsq + b] = qsq[b];
+    v[L::kQsum + b] = qsum[b];
   }
-  __syncthreads();
+  __shared__ double red[kWarps][L::kP];
+  __shared__ double tot[L::kP];
+  __shared__ bool last;
+  block_sum(v, red, tot);
+  if (nchunks > 1) {
+    // Each block writes its partials; the last of the tile to arrive adds
+    // them all, thread t taking chunks t, t + 256, ... of every moment.
+    double* mine = part + static_cast<long long>(tile) * L::kP * nchunks;
+    if (t < L::kP) mine[static_cast<long long>(t) * nchunks + c] = tot[t];
+    __threadfence();
+    __syncthreads();
+    if (t == 0) last = atomicAdd(tickets + tile, 1u) == static_cast<unsigned>(nchunks - 1);
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+#pragma unroll
+    for (int k = 0; k < L::kP; ++k) v[k] = 0.0;
+    for (int i = t; i < nchunks; i += kThreads) {
+#pragma unroll
+      for (int k = 0; k < L::kP; ++k)  // all the moments' loads at once
+        v[k] += __ldcg(mine + static_cast<long long>(k) * nchunks + i);
+    }
+    block_sum(v, red, tot);
+    if (t == 0) tickets[tile] = 0u;  // ready for the next call on this stream
+  }
 
-  const int t = threadIdx.x;
-  if (t < kNDot) {
-    const int r = t / kQueriesT, b = t % kQueriesT;
+  if (t < RB * QB) {
+    const int r = t / QB, b = t % QB;
     if (r < nr && b < nb) {
-      float v = 0.f;
-      for (int w = 0; w < kWarps; ++w) v += s_dot[w][t];
-      dotp[(static_cast<long long>(c) * B + b0 + b) * N + r0 + r] = v;
-    }
-  } else if (t < kNDot + 2 * kRowsT) {
-    // Integer moments: written once per (chunk, row), by the first query tile.
-    const int i = t - kNDot, r = i % kRowsT;
-    if (blockIdx.z == 0 && r < nr) {
-      long long v = 0;
-      for (int w = 0; w < kWarps; ++w) v += s_int[w][i];
-      long long* dst = i < kRowsT ? sump : sqp;
-      dst[static_cast<long long>(c) * N + r0 + r] = v;
-    }
-  } else if (t < kNDot + 2 * kRowsT + 2 * kQueriesT) {
-    // Query statistics: written once per (chunk, query), by the first row tile.
-    const int i = t - kNDot - 2 * kRowsT, b = i % kQueriesT;
-    if (blockIdx.y == 0 && b < nb) {
-      double v = 0.0;
-      for (int w = 0; w < kWarps; ++w) v += s_q[w][i];
-      double* dst = i < kQueriesT ? qsqp : qsump;
-      dst[static_cast<long long>(c) * B + b0 + b] = v;
+      const int n = r0 + r;
+      const double qs = tot[L::kQsq + b], qm = tot[L::kQsum + b], dd = static_cast<double>(D);
+      const double s = scales[n], z = zps[n];
+      double dist;
+      if (s != 0.0) {
+        const double norm = s * s * (tot[L::kSq + r] - 2.0 * z * tot[L::kSum + r] + dd * z * z);
+        dist = qs + norm + 2.0 * (qm * s * z - s * tot[L::kDot + r * QB + b]);
+      } else {
+        const double m = mids[n];
+        dist = qs - 2.0 * m * qm + dd * m * m;
+      }
+      out[static_cast<long long>(b0 + b) * N + n] = dist > 0.0 ? dist : 0.0;
     }
   }
 }
 
-__global__ void ql2_combine(
-    const float* __restrict__ dotp, const long long* __restrict__ sump,
-    const long long* __restrict__ sqp, const double* __restrict__ qsqp,
-    const double* __restrict__ qsump, const double* __restrict__ scales,
-    const double* __restrict__ zps, const double* __restrict__ mids,
-    double* __restrict__ out, int B, int N, long long D, int nchunks) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * N) return;
-  const int b = i / N, n = i % N;
-  double dot = 0.0, qsq = 0.0, qsum = 0.0;
-  long long sum = 0, sq = 0;
-  for (int c = 0; c < nchunks; ++c) {
-    dot += static_cast<double>(dotp[(static_cast<long long>(c) * B + b) * N + n]);
-    sum += sump[static_cast<long long>(c) * N + n];
-    sq += sqp[static_cast<long long>(c) * N + n];
-    qsq += qsqp[static_cast<long long>(c) * B + b];
-    qsum += qsump[static_cast<long long>(c) * B + b];
-  }
-  const double s = scales[n], z = zps[n], dd = static_cast<double>(D);
-  double dist;
-  if (s != 0.0) {
-    const double norm = s * s * (static_cast<double>(sq) - 2.0 * z * static_cast<double>(sum) + dd * z * z);
-    dist = qsq + norm + 2.0 * (qsum * s * z - s * dot);
-  } else {
-    const double m = mids[n];
-    dist = qsq - 2.0 * m * qsum + dd * m * m;
-  }
-  out[i] = dist > 0.0 ? dist : 0.0;
+template <int QB, bool VEC>
+cudaError_t run(const float* q, const uint8_t* codes, const double* scales, const double* zps,
+                const double* mids, double* out, double* part, unsigned* tickets, int B, int N,
+                long long D, int nchunks, long long chunk, cudaStream_t s) {
+  const long long tiles = static_cast<long long>((N + kRows - 1) / kRows) * ((B + QB - 1) / QB);
+  const long long blocks = tiles * nchunks;
+  if (blocks > 0x7fffffffLL || (nchunks > 1 && (part == nullptr || tickets == nullptr)))
+    return cudaErrorInvalidValue;
+  ql2_kernel<QB, VEC><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      q, codes, scales, zps, mids, out, part, tickets, B, N, D, chunk, 0x4B000000u);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -246,28 +301,34 @@ __global__ void ql2_combine(
 extern "C" {
 
 // out (B, N) float64 = squared L2 of queries q (B, D) float32 against codes
-// (N, D) uint8 with per-row scales/zps/mids (N,) float64. The scratch
-// buffers hold the per-chunk partials: dotp (nchunks, B, N) float32, sump
-// and sqp (nchunks, N) int64, qsqp and qsump (nchunks, B) float64.
-// vec = 1 takes the 8-wide loads (D % 8 == 0, q 16-byte and codes 8-byte
-// aligned). Returns cudaGetLastError() after the launches (0 on success).
-int quantized_l2(const float* q, const uint8_t* codes, const double* scales,
-                 const double* zps, const double* mids, double* out,
-                 float* dotp, long long* sump, long long* sqp, double* qsqp,
-                 double* qsump, int B, int N, long long D, int nchunks,
-                 long long chunk, int vec, void* stream) {
+// (N, D) uint8 with per-row scales/zps/mids (N,) float64, in one launch of
+// (row tiles * query tiles * nchunks) blocks, each chunk `chunk` elements
+// of D. qb = 1, 2 or 4 queries a tile (by 4 code rows) on the
+// 16-byte path (vec = 1: D % 16 == 0, q and codes 16-byte aligned, chunk a
+// multiple of 16); vec = 0 takes element loads, with qb = 4. A thread
+// takes at most 32768 elements. With nchunks > 1, part holds (tiles, P, nchunks)
+// float64 partials (P = 4*qb + 2*qb + 2*4) and tickets (tiles,) uint32
+// zeros, which the kernel leaves at zero. Returns the CUDA error (0 on
+// success).
+int quantized_l2(const float* q, const uint8_t* codes, const double* scales, const double* zps,
+                 const double* mids, double* out, double* part, unsigned* tickets, int B, int N,
+                 long long D, int qb, int vec, int nchunks, long long chunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(nchunks, (N + kRowsT - 1) / kRowsT, (B + kQueriesT - 1) / kQueriesT);
-  if (vec)
-    ql2_moments<true><<<grid, kThreads, 0, s>>>(q, codes, B, N, D, chunk, dotp, sump, sqp, qsqp, qsump);
-  else
-    ql2_moments<false><<<grid, kThreads, 0, s>>>(q, codes, B, N, D, chunk, dotp, sump, sqp, qsqp, qsump);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int total = B * N;
-  ql2_combine<<<(total + 127) / 128, 128, 0, s>>>(dotp, sump, sqp, qsqp, qsump, scales, zps,
-                                                 mids, out, B, N, D, nchunks);
-  return static_cast<int>(cudaGetLastError());
+  const long long unit = vec ? kStep : 1, step = kThreads * unit;
+  if (B <= 0 || N <= 0 || D <= 0 || nchunks <= 0 || chunk <= 0 || chunk % unit != 0 ||
+      (nchunks - 1) * chunk >= D || nchunks * chunk < D ||
+      (chunk + step - 1) / step * unit > 32768 || (vec && D % kStep != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (vec && qb == 1)
+    err = run<1, true>(q, codes, scales, zps, mids, out, part, tickets, B, N, D, nchunks, chunk, s);
+  else if (vec && qb == 2)
+    err = run<2, true>(q, codes, scales, zps, mids, out, part, tickets, B, N, D, nchunks, chunk, s);
+  else if (vec && qb == 4)
+    err = run<4, true>(q, codes, scales, zps, mids, out, part, tickets, B, N, D, nchunks, chunk, s);
+  else if (!vec && qb == 4)
+    err = run<4, false>(q, codes, scales, zps, mids, out, part, tickets, B, N, D, nchunks, chunk, s);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -94,9 +94,10 @@ def quantized_l2_auto(queries, codes, scales, zps, mids, *,
     (``repro_torch.core.hnsw``) uses its numpy decomposed form.
 
     ``device`` (default: the device of ``codes`` when it is a tensor, else
-    the CPU) decides: on CUDA the kernel always runs (host arrays are
-    copied to the card; ``force="numpy"`` raises, there is no plain path
-    there); on the CPU the call declines unless ``force="kernel"``, which
+    the CPU) decides: on CUDA the kernel always runs (tensors already on
+    the card are used in place, as a CUDA index passes its device mirror;
+    host arrays are copied there; ``force="numpy"`` raises, there is no
+    plain path there); on the CPU the call declines unless ``force="kernel"``, which
     runs the wrapper's plain dense version (the parity-test hook).
     ``min_elems`` is accepted for the reference's signature and unused.
     """

@@ -127,37 +127,42 @@ def _kernels(prof) -> list[tuple[float, float, str]]:
                   if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"))
 
 
+def _active_kernels(body, warmup: int, reps: int) -> list[tuple[float, float, str]]:
+    """Kernels of ``reps`` runs of ``body`` traced in the active step of a
+    schedule whose warm-up step (``warmup`` runs, discarded) absorbs the
+    tracer's start: a trace started and stopped around a short run can
+    miss every kernel."""
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts, acc_events=True,
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for rounds in (warmup, reps):
+            for _ in range(rounds):
+                body()
+            torch.cuda.synchronize()
+            prof.step()
+    return _kernels(prof)
+
+
 def kernel_ms(fn, reps: int, flush, match: str | None = None, warmup: int = 5,
               tries: int = 3) -> float:
     """Mean device ms a call of ``fn``, host issue left out: the summed
     durations of the kernels ``fn`` launches (those whose name holds
     ``match``, or all but the flush's) over ``reps`` rounds of
-    (``flush()``, ``fn()``), traced by ``torch.profiler`` in the active
-    step of a schedule whose warm-up step (``warmup`` rounds, discarded)
-    absorbs the tracer's start; kernels that start before the active
+    (``flush()``, ``fn()``), traced by ``torch.profiler``
+    (:func:`_active_kernels`); kernels that start before the active
     step's first flush are not counted.
 
     The tracer can drop whole rounds, so the mean is taken over the rounds
     it kept: at least half of them, each with the same number of kernels
     of ``fn`` (one, with ``match``). A trace that breaks this is taken
     again, up to ``tries`` times, and then raises. Needs a CUDA card."""
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        flush()
-        torch.cuda.synchronize()
-    flush_names = {name for _, _, name in _kernels(prof)}
     fn()
     torch.cuda.synchronize()
+    rounds, mine = 0, []
     for _ in range(tries):
-        with profile(activities=acts, acc_events=True,
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for rounds in (warmup, reps):
-                for _ in range(rounds):
-                    flush()
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        ks = _kernels(prof)
+        # The flush's kernel names, traced anew each try.
+        flush_names = {name for _, _, name in _active_kernels(flush, 2, 2)}
+        ks = _active_kernels(lambda: (flush(), fn()), warmup, reps)
         starts = [s for s, _, name in ks if name in flush_names]
         mine = [(e - s, name) for s, e, name in ks if starts and s >= starts[0]
                 and name not in flush_names and (match is None or match in name)]

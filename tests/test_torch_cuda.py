@@ -8,10 +8,13 @@ the GPU machine, which has no JAX, run
 This file imports nothing of JAX or ``repro``: the kernels are held
 against their plain PyTorch versions, and the CUDA entry points against
 the same calls with ``device="cpu"``. The shapes reach the paths that
-``chip_smoke.py`` does not: ragged N and K, the byte loads (N % 16 or
-D % 8 not zero), more than 8 rows of x, the decode path's shapes at batch
-1 to 9, bit-identical repeats of the in-cluster K reduction, more than 8
-code rows and 4 queries a block, and K too short to split; for ``flash_attention``, both
+``chip_smoke.py`` does not: ragged N and K, the byte loads (N % 16 not
+zero), more than 8 rows of x, the decode path's shapes at batch 1 to 9,
+bit-identical repeats of the in-cluster K reduction, and K too short to
+split; for ``quantized_l2``, every tile shape, D % 16 not zero, D in one
+chunk and in many, an unaligned query view, constant rows, rows that
+nearly coincide with a query and bit-identical repeats, and a CUDA
+index's device mirror; for ``flash_attention``, both
 routes (bfloat16 on the tensor cores, float32 on the CUDA cores), every
 head dim, groups that do not divide the 128-row tile, strided inputs, key
 lengths short of Sk, rows that have no real key, and the bfloat16 route's
@@ -26,7 +29,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import CompressedModel, StorageEngine
-from repro_torch.core.hnsw import HNSWIndex
+from repro_torch.core.hnsw import HNSWIndex, mirror_uploads
 from repro_torch.kernels import dequant_matmul as dm
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
@@ -158,20 +161,134 @@ def test_dequant_matmul_rejects_what_it_cannot_take(cuda):
         ops.dequant_matmul_auto(x, base, 1.0, 0.0, base, 1.0, 0.0, force="numpy")
 
 
-@pytest.mark.parametrize("b,n,d", [(3, 7, 300), (7, 19, 1000), (5, 3, 4096),
-                                   (1, 1, 1), (2, 130, 2056)])
-def test_quantized_l2_kernel_matches_plain(cuda, b, n, d):
-    rng = np.random.default_rng(b * 100 + n + d)
+def _l2_inputs(b, n, d, seed):
+    rng = np.random.default_rng(seed)
     q = rng.normal(0, 1, (b, d)).astype(np.float32)
     codes = rng.integers(0, 256, (n, d), dtype=np.uint8)
     scales = rng.uniform(1e-3, 2e-2, n)
     scales[n // 2] = 0.0
     zps = rng.integers(0, 256, n).astype(np.float64)
     mids = rng.normal(0, 0.5, n)
+    return q, codes, scales, zps, mids
+
+
+# (B, N, D): D % 16 != 0 (element path), the 16-byte path at 1, 2 and 4
+# queries a tile (B = 3 and 5 in tiles of 4), one code row and 130 (many
+# row tiles), D in one chunk and in many (a tile's blocks added by the
+# last one to finish), and the save probe's shapes cut to 2^20 columns.
+@pytest.mark.parametrize("b,n,d", [(3, 7, 300), (7, 19, 1000), (5, 3, 4096),
+                                   (1, 1, 1), (2, 130, 2056), (3, 130, 4096),
+                                   (3, 7, 1 << 20), (1, 2, 1 << 20), (1, 6, 1 << 20),
+                                   (2, 4, 1 << 20), (4, 4, 1 << 20), (5, 1, 2048),
+                                   (2, 9, 65552)])
+def test_quantized_l2_kernel_matches_plain(cuda, b, n, d):
+    q, codes, scales, zps, mids = _l2_inputs(b, n, d, b * 100 + n + d)
     want = ops.quantized_l2_auto(q, codes, scales, zps, mids, force="kernel")
     got = ops.quantized_l2_auto(q, codes, scales, zps, mids, device="cuda")
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=1e-9)
     np.testing.assert_array_equal(got.argmin(axis=1), want.argmin(axis=1))
+
+
+def _on_card(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays]
+
+
+def test_quantized_l2_takes_an_unaligned_query_view(cuda):
+    """Queries at a 4-byte offset into their storage take the element
+    path and give the plain version's distances (rtol 2e-3)."""
+    q, codes, scales, zps, mids = _l2_inputs(3, 5, 4096, 17)
+    store = torch.zeros(q.size + 1, dtype=torch.float32, device="cuda")
+    store[1:] = torch.from_numpy(q.ravel()).cuda()
+    qv = store[1:].view(3, 4096)
+    assert qv.is_contiguous() and qv.data_ptr() % 16 == 4
+    args = (qv, *_on_card(codes, scales, zps, mids))
+    got = ops.quantized_l2(*args)
+    want = ref.quantized_l2(*args)
+    _assert_close(got, want, rtol=2e-3)
+    assert torch.equal(got.argmin(dim=1), want.argmin(dim=1))
+
+
+@pytest.mark.parametrize("d", [300, 1 << 20])
+def test_quantized_l2_all_constant_rows(cuda, d):
+    """Rows with scale 0 are their mid everywhere: |q|^2 - 2 mid Sq + D mid^2."""
+    q, codes, _, zps, mids = _l2_inputs(2, 5, d, d)
+    scales = np.zeros(5)
+    got = ops.quantized_l2_auto(q, codes, scales, zps, mids, device="cuda")
+    want = ops.quantized_l2_auto(q, codes, scales, zps, mids, force="kernel")
+    np.testing.assert_allclose(got, want, rtol=2e-3)
+    np.testing.assert_array_equal(got.argmin(axis=1), want.argmin(axis=1))
+
+
+@pytest.mark.parametrize("b,n,d", [(1, 2, 1 << 22), (4, 4, 1 << 21), (3, 130, 4096),
+                                   (3, 7, 300)])
+def test_quantized_l2_is_bit_identical_on_repeat(cuda, b, n, d):
+    """The last block of a tile adds its partials in chunk order, so the
+    result does not depend on which block finishes last."""
+    args = _on_card(*_l2_inputs(b, n, d, 5))
+    first = ops.quantized_l2(*args)
+    for _ in range(3):
+        assert torch.equal(ops.quantized_l2(*args), first)
+
+
+@pytest.mark.parametrize("d", [4096, 1 << 20])
+def test_quantized_l2_near_coincident_rows_match_plain(cuda, d):
+    """A query against its own 8-bit quantization (distance ~1e-4 of
+    |q|^2) beside far and constant rows: within rtol 2e-3 of the dense
+    float64 plain version, with the same argmin."""
+    from repro_torch.core.quantize import quantize_linear_batch
+
+    rng = np.random.default_rng(d)
+    q = rng.normal(0.0, 1.0, (3, d)).astype(np.float32)
+    rows = np.concatenate([q.astype(np.float64), rng.normal(0.5, 2.0, (2, d)),
+                           np.full((1, d), 0.25)])
+    codes, scales, zps, mids = quantize_linear_batch(rows, nbit=8)
+    args = _on_card(q, codes.astype(np.uint8), scales, zps.astype(np.float64), mids)
+    got = ops.quantized_l2(*args)
+    want = ref.quantized_l2(*args)
+    _assert_close(got, want, rtol=2e-3)
+    assert got.argmin(dim=1).tolist() == [0, 1, 2] == want.argmin(dim=1).tolist()
+
+
+def _assert_mirror(idx):
+    n = len(idx)
+    codes, scales, zps, mids = (t.cpu() for t in idx.mirror.view(n))
+    assert idx.mirror.device.type == "cuda"
+    assert torch.equal(codes, torch.from_numpy(idx._codes[:n]))
+    assert torch.equal(scales, torch.from_numpy(idx._scales[:n]))
+    assert torch.equal(zps, torch.from_numpy(idx._zps[:n].astype(np.float64)))
+    assert torch.equal(mids, torch.from_numpy(idx._mids[:n]))
+
+
+def test_cuda_index_mirror_equals_its_host_arrays(cuda):
+    """The mirror on the card after insert, insert_batch past the capacity,
+    mark_deleted + compact, from_bytes and clone; each entering row is
+    uploaded once, and the ids are the CPU index's."""
+    rng = np.random.default_rng(8)
+    rows = rng.normal(0, 1, (4, 300))[rng.integers(0, 4, 40)] + rng.normal(0, 0.05, (40, 300))
+    before = dict(mirror_uploads)
+
+    def uploaded():
+        return {k: mirror_uploads[k] - before[k] for k in before}
+
+    a, b = HNSWIndex(300, device="cpu"), HNSWIndex(300, device=cuda)
+    for r in rows[:3]:
+        assert a.insert(r) == b.insert(r)
+        _assert_mirror(b)
+    assert a.insert_batch(rows[3:]) == b.insert_batch(rows[3:])
+    _assert_mirror(b)
+    assert uploaded() == {"rows": 40 * 300, "index": 0}
+    for v in (1, 22):
+        a.mark_deleted(v)
+        b.mark_deleted(v)
+    assert a.compact() == b.compact()
+    _assert_mirror(b)
+    for i, make in enumerate((lambda: HNSWIndex.from_bytes(b.to_bytes(), device=cuda),
+                              b.clone)):
+        c = make()
+        _assert_mirror(c)
+        assert uploaded() == {"rows": 40 * 300, "index": (i + 1) * 38 * 300}
+        np.testing.assert_array_equal(c.nearest_live_batch(rows[:6])[0],
+                                      a.nearest_live_batch(rows[:6])[0])
 
 
 def test_cuda_index_gives_the_cpu_index_ids(cuda):

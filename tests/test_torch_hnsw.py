@@ -111,6 +111,7 @@ def test_cuda_index_sends_every_block_to_the_kernel_seam(monkeypatch):
                                      force="kernel", device="cpu")
 
     monkeypatch.setattr(t_hnsw, "_offload_distances", seam)
+    port.mirror = t_hnsw.CodeMirror(DIM, "cpu")  # the device mirror, here on the CPU
     port.device = torch.device("cuda")
     rows = _data(4, 20)
     ref.insert_batch(rows)

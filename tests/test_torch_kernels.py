@@ -20,6 +20,7 @@ import torch
 from repro.core.hnsw import quantized_l2_batch as r_quantized_l2_batch
 from repro.kernels import ops as r_ops
 from repro.kernels import ref as r_ref
+from repro_torch.core.quantize import quantize_linear_batch
 from repro_torch.kernels import dequant_matmul as t_dm
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import quantized_l2 as t_ql2
@@ -237,10 +238,84 @@ def test_code_to_float_steps_round_like_the_reference(zp):
             assert np.array_equal(folded.view(np.uint32), want.view(np.uint32))
 
 
+# The save probe's (B, N, D) distance blocks (chip_smoke.py L2_SHAPES).
+_PROBE_SHAPES = [(2, 4, 4194304), (4, 4, 2097152), (1, 6, 16777216), (1, 2, 189530112)]
+
+
 @pytest.mark.parametrize("b,n,d", [(2, 4, 4194304), (1, 2, 189530112), (5, 1, 2048),
-                                   (3, 130, 1000), (1, 1, 1)])
+                                   (3, 130, 1000), (1, 1, 1), (4, 4, 2097152),
+                                   (1, 6, 16777216)])
 def test_quantized_l2_chunks_cover_d_within_int32_moments(b, n, d):
-    nchunks, chunk = t_ql2.chunking(b, n, d, 132)
-    assert chunk % 2048 == 0
-    assert (nchunks - 1) * chunk < d <= nchunks * chunk
-    assert math.ceil(chunk / 256) * 255 ** 2 < 2 ** 31  # one thread's share
+    """The launch plan on both paths: tiles of 1, 2 or 4 queries (by B)
+    on the 16-byte path and 4 on the element path cover every query and
+    code row; chunks of whole block steps cover D once, with no thread
+    taking more elements than its uint32 moments hold; on the save probe's
+    shapes every SM gets a block."""
+    for vec in (True, False):
+        p = t_ql2.plan(b, n, d, 132, vec)
+        assert p.qb == ({1: 1, 2: 2}.get(b, 4) if vec else 4)
+        assert p.tiles == math.ceil(n / 4) * math.ceil(b / p.qb)  # tiles of 4 code rows
+        assert p.partials == 4 * p.qb + 2 * p.qb + 2 * 4
+        step = 16 if vec else 1  # elements a thread a step
+        assert p.chunk % step == 0
+        assert (p.nchunks - 1) * p.chunk < d <= p.nchunks * p.chunk
+        share = math.ceil(p.chunk / (256 * step)) * step  # one thread's share of a chunk
+        assert share * 255 ** 2 < 2 ** 31
+        if (b, n, d) in _PROBE_SHAPES:
+            assert p.blocks == (2 if p.qb < 4 else 1) * 132
+
+
+def _kernel_replay(q, codes, scales, zps, mids):
+    """The kernel's arithmetic in numpy (16-byte path): c·q and q·q in
+    float32 over each thread step's 16 elements, as four chains of four
+    added (a0 + a1) + (a2 + a3), and Σq in float32 in the same order; the
+    step sums and the combination in float64, Σc and Σc² exact. numpy
+    rounds each product and sum apart where the kernel's fmaf rounds once,
+    so the replay's error bounds the kernel's from above."""
+    b, d = q.shape
+    n = codes.shape[0]
+    c32 = codes.astype(np.float32).reshape(1, n, d // 16, 4, 4)
+    q32 = q.astype(np.float32).reshape(b, 1, d // 16, 4, 4)
+
+    def steps(prod):  # (..., steps, 4, 4) float32 terms -> float64 sum of step sums
+        a = prod[..., 0]
+        for e in range(1, 4):
+            a = a + prod[..., e]
+        step = (a[..., 0] + a[..., 1]) + (a[..., 2] + a[..., 3])
+        assert step.dtype == np.float32
+        return step.astype(np.float64).sum(axis=-1)
+
+    dot = steps(c32 * q32)
+    qsq = steps(q32 * q32)
+    pairs = q32[..., 0::2] + q32[..., 1::2]  # Σq: (x0 + x1) + (x2 + x3) a chain
+    qsum = steps(np.concatenate([pairs, np.zeros_like(pairs)], axis=-1))
+    c64 = codes.astype(np.int64)
+    csum, csq = c64.sum(axis=1).astype(np.float64), (c64 * c64).sum(axis=1).astype(np.float64)
+    norm = scales * scales * (csq - 2.0 * zps * csum + d * zps * zps)
+    dist = qsq + norm + 2.0 * (qsum * scales * zps - scales * dot)
+    const = qsq - 2.0 * mids * qsum + d * mids * mids
+    return np.maximum(np.where(scales == 0.0, const, dist), 0.0)
+
+
+@pytest.mark.parametrize("d", [4096, 65536])
+def test_kernel_step_sums_hold_the_contract_at_near_coincident_rows(d):
+    """Where a query nearly coincides with a row (its own 8-bit
+    quantization), the distance is ~1e-4 of |q|² and a float32 Σc·q over
+    a thread's whole share misses rtol 2e-3 (the reference's note); the
+    kernel's step sums (replayed) hold rtol 2e-3 against the dense float64
+    plain version there, with the same argmin, beside far and constant
+    rows."""
+    rng = np.random.default_rng(d)
+    q = rng.normal(0.0, 1.0, (3, d)).astype(np.float32)
+    rows = np.concatenate([q.astype(np.float64), rng.normal(0.5, 2.0, (2, d)),
+                           np.full((1, d), 0.25)])
+    codes, scales, zps, mids = quantize_linear_batch(rows, nbit=8)
+    zps = zps.astype(np.float64)
+    want = t_ref.quantized_l2(torch.from_numpy(q), torch.from_numpy(codes),
+                              torch.from_numpy(scales), torch.from_numpy(zps),
+                              torch.from_numpy(mids)).numpy()
+    assert scales[-1] == 0.0 and want[0, 0] < 1e-3 * want[0, 3]
+    got = _kernel_replay(q, codes, scales, zps, mids)
+    np.testing.assert_allclose(got, want, rtol=2e-3)
+    np.testing.assert_array_equal(got.argmin(axis=1), [0, 1, 2])
+    np.testing.assert_array_equal(got.argmin(axis=1), want.argmin(axis=1))
