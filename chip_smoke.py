@@ -2,15 +2,17 @@
 
     python3 chip_smoke.py
 
-Phases (each one fails the run when it does not hold):
+Phases (each one fails the run when it does not hold; 5 runs before 4):
 
 1. Device: the card's name and power limit; TF32 off for matmuls and cuDNN.
-2. Build: compile the CUDA kernels from ``src/repro_torch/csrc/``; log the
-   bfloat16 attention kernel's, every ``dq_matmul_kernel``'s and every
-   ``ql2_kernel``'s registers, shared memory and spills (a spill fails the
-   run), and check in the ``dq_matmul_kernel`` SASS (``cuobjdump``; none
-   found fails the run) that no integer-to-float conversion instruction
-   turns codes into floats.
+2. Build: compile the CUDA kernels from ``src/repro_torch/csrc/``; log both
+   attention kernels', every ``dq_matmul_kernel``'s and every
+   ``ql2_kernel``'s registers, shared memory and spills (a spill of the
+   float32 attention kernel, the matmuls or the distances fails the run),
+   and check in the SASS (``cuobjdump``; none found fails the run) that no
+   integer-to-float conversion instruction turns codes into floats in
+   ``dq_matmul_kernel`` and that every ``flash_attn_tf32`` runs its
+   products as ``HGMMA`` on tf32 operands.
 3. Kernels against their plain PyTorch versions, on the card, at the shapes
    the main path gives them; prints one ``{"kernels": [...]}`` line with
    launches, errors, times and bounds. Times are host-inclusive (CUDA
@@ -35,18 +37,23 @@ Phases (each one fails the run when it does not hold):
    busy share and the ``dq_matmul`` kernels' share of it).
 5. ``flash_attention`` against its plain version on the card, on both
    routes: the shapes of the reference's kernel tests and the internlm2
-   prefill shape in float32 (the CUDA-core kernel) and in bfloat16 (the
-   tensor-core kernel), and one 8192-token prompt in bfloat16, each with
-   kernel, plain, bound and ``scaled_dot_product_attention`` times.
+   prefill shape in float32 (the split-tf32 tensor-core kernel) and in
+   bfloat16 (the bf16 tensor-core kernel), and one 8192-token prompt in
+   bfloat16, each with kernel, plain, bound and
+   ``scaled_dot_product_attention`` times; at the prefill shape also
+   device-only (``profile_steps.kernel_ms``). The float32 bound is three
+   tf32 products an operation at the tf32 rate (one misses the
+   tolerance), with the float32 CUDA-core figure beside it.
 6. The model stack at the full widths and depth of internlm2-1.8b (24
    layers, bfloat16, random weights from ``SEED``): ``make_prefill_step`` on
    4 x 2048 prompts (24 ``flash_attention`` launches, all on the bfloat16
    tensor-core route), checked against the same prefill on the plain
    attention (per layer, and in the last-token logits against the library
-   attention's distance); in float32, the forward's logits
-   (24 launches on the float32 route) against a ``decode_step`` loop over a
-   32-token prompt; ``make_serve_step`` greedy decode of 16 tokens at
-   batch 4.
+   attention's distance); ``make_serve_step`` greedy decode of 16 tokens
+   at batch 4; in float32, the 4 x 2048 prefill again (24 launches, all on
+   the float32 route), timed and checked against the same prefill on the
+   plain attention, and the forward's logits (24 launches on the float32
+   route) against a ``decode_step`` loop over a 32-token prompt.
 7. The store-backed server (internlm2 widths, depth cut to 2 layers):
    ``CheckpointManager.save`` (distance blocks through ``quantized_l2``),
    ``ModelServer`` ``load`` and ``generate`` at ``bits=None``, checked
@@ -82,6 +89,10 @@ SEED = 0
 HBM_SXM = 3.35e12
 FP32_PEAK = 67e12
 BF16_TC_PEAK = 989e12  # dense bf16 tensor-core rate
+TF32_TC_PEAK = 495e12  # dense tf32 tensor-core rate
+# tf32 products a float32 operation takes in the float32 attention kernel
+# (hi hi + hi lo + lo hi): the least that meets rtol 1e-4 on this card.
+F32_SPLIT = 3
 # Decode widths of internlm2-1.8b (repro/configs/internlm2_1_8b.py): 24
 # layers in the published model, cut to 2 here because the save path is
 # host numpy and 24 layers would not fit the run's time limit.
@@ -122,9 +133,10 @@ FA_LOGITS_ATOL = 0.15
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 CONSISTENCY_LEN = 32
 # float32 forward (flash_attention) against the decode loop (plain attention
-# over the cache) at 24 layers. Both are IEEE float32 and differ only in the
-# order of sums: on an H100 the logits (|x| up to about 5) agreed within
-# 2.8e-5, so 1e-3 leaves a margin of about 36x. The reference's
+# over the cache) at 24 layers, and the float32 4 x 2048 prefill against the
+# same prefill on the plain attention. With an IEEE float32 attention kernel
+# the forward's logits (|x| up to about 5) agreed with the decode loop within
+# 2.8e-5 on an H100, so 1e-3 left a margin of about 36x. The reference's
 # test_prefill_decode_consistency holds 2e-2 / 2e-3, far looser than that.
 CONSISTENCY_TOL = (1e-3, 1e-3)
 SERVE_LAYERS = 2  # phase 7's depth: the checkpoint save is host numpy
@@ -235,12 +247,10 @@ def _cuobjdump() -> str | None:
     return next((str(c) for c in cands if c.is_file()), None)
 
 
-def _sass_conversions(lib: Path, kernel: str) -> dict[str, int] | None:
-    """Integer-to-float conversions of values (``I2F``, ``I2FP``) in the
-    SASS of each function of ``lib`` whose name holds ``kernel``, by
-    mangled name; None when no ``cuobjdump`` is found. ``I2F.RP`` is not
-    counted: it is the reciprocal step of an integer division by a value
-    known only at run time (the launch plan's strides), never a code."""
+def _sass_count(lib: Path, kernel: str, matches) -> dict[str, int] | None:
+    """Instructions of the SASS of each function of ``lib`` whose name
+    holds ``kernel`` for which ``matches(line)`` holds, by mangled name;
+    None when no ``cuobjdump`` is found."""
     tool = _cuobjdump()
     if tool is None:
         return None
@@ -253,9 +263,18 @@ def _sass_conversions(lib: Path, kernel: str) -> dict[str, int] | None:
             name = m.group(1) if kernel in m.group(1) else None
             if name is not None:
                 out[name] = 0
-        elif name is not None and re.search(r"\bI2F", line) and ".RP " not in line:
+        elif name is not None and matches(line):
             out[name] += 1
     return out
+
+
+def _sass_conversions(lib: Path, kernel: str) -> dict[str, int] | None:
+    """Integer-to-float conversions of values (``I2F``, ``I2FP``) in the
+    SASS of each ``kernel`` function of ``lib``. ``I2F.RP`` is not
+    counted: it is the reciprocal step of an integer division by a value
+    known only at run time (the launch plan's strides), never a code."""
+    return _sass_count(lib, kernel,
+                       lambda line: re.search(r"\bI2F", line) and ".RP " not in line)
 
 
 def phase_build() -> dict:
@@ -274,6 +293,23 @@ def phase_build() -> dict:
         log(f"ptxas: flash_attn_sm90<{dh}>: {st}")
     if sorted(stats) != list(fa.HEAD_DIMS):
         fail(f"flash_attn_sm90 build: head dims {sorted(stats)} in the ptxas log")
+    f32 = {int(k): v for k, v in
+           _ptxas(_build.build_log("flash_attention"), r"flash_attn_tf32ILi(\d+)E").items()}
+    lib32 = fa._library("flash_attention")
+    for dh, st in sorted(f32.items()):
+        st["dynamic_smem_bytes"] = lib32.flash_attention_smem_bytes(dh)
+        log(f"ptxas: flash_attn_tf32<{dh}>: {st}")
+    spilled = {d: st for d, st in f32.items() if st.get("spill_stores") or st.get("spill_loads")}
+    if sorted(f32) != list(fa.HEAD_DIMS) or spilled:
+        fail(f"flash_attn_tf32 build: head dims {sorted(f32)} in the ptxas log, spills {spilled}")
+    hgmma = _sass_count(_build.library_path("flash_attention"), "flash_attn_tf32",
+                        lambda line: "HGMMA" in line and "TF32" in line)
+    if hgmma is None:
+        fail("flash_attn_tf32 SASS: no cuobjdump found (CUDA toolkit or Triton's package), "
+             "so the tf32 products cannot be checked")
+    log(f"sass: HGMMA on tf32 operands in each flash_attn_tf32: {hgmma}")
+    if len(hgmma) != len(fa.HEAD_DIMS) or not all(hgmma.values()):
+        fail(f"flash_attn_tf32 SASS: tf32 HGMMA instructions {hgmma}")
     dq = _ptxas(_build.build_log("dequant_matmul"), r"dq_matmul_kernelI(\w+?)EEv")
     for args, st in sorted(dq.items()):
         log(f"ptxas: dq_matmul_kernel<{args}>: {st}")
@@ -294,7 +330,7 @@ def phase_build() -> dict:
         f"dq_matmul_kernel: {conv}")
     if not conv or any(conv.values()):
         fail(f"dq_matmul_kernel SASS: integer-to-float conversions {conv}")
-    return stats[FA_PREFILL[5]]
+    return {"bfloat16": stats[FA_PREFILL[5]], "float32": f32[FA_PREFILL[5]]}
 
 
 def phase_kernels(dev_info: dict) -> list[dict]:
@@ -550,22 +586,41 @@ def phase_flash_attention(dev_info: dict, ptxas: dict) -> dict:
         esize = q.element_size()
         nbytes = (2 * b * sq * h + 2 * b * sk * kv) * dh * esize
         flops = 4 * b * h * dh * _attention_pairs(sq, sk, causal, window)
-        # The bound takes the card's peak for the operand type: bfloat16 on
-        # the tensor cores, float32 outside them (TF32 would miss rtol 1e-4).
-        # The bfloat16 kernel splits p into hi + lo, so it issues 1.5x these
-        # operations; the extra half is printed as its own figure.
-        peak = BF16_TC_PEAK if dtype == torch.bfloat16 else FP32_PEAK
-        bound = max(nbytes / bw, flops / peak) * 1e3
-        log(f"shape: {name} [{route}]: ms {ms:.6f} plain {plain_ms:.6f} library {lib_ms:.6f} "
-            f"bound {bound:.6f} (at {peak / 1e12:.0f} TFLOP/s, {bound / ms:.4f} of it) "
-            f"achieved {flops / ms / 1e9:.3f} TFLOP/s of the work the inputs need"
-            + (f", {1.5 * flops / ms / 1e9:.3f} issued with the split p" if esize == 2 else "")
+        # The bound takes the card's tensor-core peak for the operand type.
+        # bfloat16: the work the inputs need (the kernel splits p into hi +
+        # lo, so it issues 1.5x these operations; printed as its own figure).
+        # float32: one tf32 product misses rtol 1e-4, so the least work that
+        # meets it is three (hi hi + hi lo + lo hi) for each; the float32
+        # CUDA-core figure of earlier slices is printed beside it.
+        if dtype == torch.bfloat16:
+            t_ops, peak_note = flops / BF16_TC_PEAK, f"{BF16_TC_PEAK / 1e12:.0f} TFLOP/s bf16"
+        else:
+            t_ops = F32_SPLIT * flops / TF32_TC_PEAK
+            peak_note = (f"{F32_SPLIT} x the operations at {TF32_TC_PEAK / 1e12:.0f} TFLOP/s "
+                         f"tf32; {flops / FP32_PEAK * 1e3:.6f} at the "
+                         f"{FP32_PEAK / 1e12:.0f} TFLOP/s float32 CUDA-core peak")
+        bound = max(nbytes / bw, t_ops) * 1e3
+        dev_ms = lib_dev_ms = None
+        if shape == FA_PREFILL:
+            kname = "flash_attn_sm90" if dtype == torch.bfloat16 else "flash_attn_tf32"
+            dev_ms = _device_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
+                                10, flush, kname)
+            lib_dev_ms = _device_ms(lambda: _sdpa(q, k, v, causal, window), 10, flush)
+        log(f"shape: {name} [{route}]: ms {ms:.6f}"
+            + ("" if dev_ms is None else f" device_ms {dev_ms:.6f} (library {lib_dev_ms:.6f})")
+            + f" plain {plain_ms:.6f} library {lib_ms:.6f} bound {bound:.6f} ({peak_note}; "
+            f"{bound / (dev_ms or ms):.4f} of it) achieved {flops / ms / 1e9:.3f} TFLOP/s of "
+            f"the work the inputs need"
+            + (f", {1.5 * flops / ms / 1e9:.3f} issued with the split p" if esize == 2
+               else f", {F32_SPLIT * flops / ms / 1e9:.3f} tf32 issued")
             + f"; kernel/library {ms / lib_ms:.3f}; abs_err {abs_err:.3e} ratio {ratio:.3f} "
             f"(rtol {rtol} atol {atol})")
         max_abs = max(max_abs, abs_err)
         if shape == FA_PREFILL:
             main[dtype] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                           "bytes": nbytes, "flops": flops, "bound_ms": bound}
+                           "bytes": nbytes, "flops": flops, "bound_ms": bound,
+                           "bound_by": "bytes" if nbytes / bw >= t_ops else "operations",
+                           "device_ms": dev_ms, "library_device_ms": lib_dev_ms}
         del q, k, v, got, want
     del flush
     torch.cuda.empty_cache()
@@ -573,11 +628,15 @@ def phase_flash_attention(dev_info: dict, ptxas: dict) -> dict:
     n = _internlm2().n_layers
     bf, f32 = main[torch.bfloat16], main[torch.float32]
     t_bytes, t_ops = n * bf["bytes"] / bw * 1e3, n * bf["flops"] / BF16_TC_PEAK * 1e3
+    fp32_core_ms = n * f32["flops"] / FP32_PEAK * 1e3
     log(f"flash_attention per prefill ({n} launches at {FA_PREFILL}): bfloat16 tensor-core "
         f"kernel {n * bf['ms']:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms on the "
         f"{n * bf['flops']} operations the inputs need (the split p issues "
-        f"{n * bf['flops'] // 2} more); float32 kernel {n * f32['ms']:.6f} ms, bound "
-        f"{n * f32['bound_ms']:.6f} ms at the float32 peak")
+        f"{n * bf['flops'] // 2} more); float32 tf32 kernel {n * f32['ms']:.6f} ms "
+        f"host-inclusive, {n * f32['device_ms']:.6f} device-only, bound "
+        f"{n * f32['bound_ms']:.6f} ms ({F32_SPLIT} tf32 products for each operation at "
+        f"{TF32_TC_PEAK / 1e12:.0f} TFLOP/s; {fp32_core_ms:.6f} at the float32 CUDA-core "
+        f"peak), {n * f32['bound_ms'] / (n * f32['device_ms']):.4f} of it on the device")
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
@@ -587,10 +646,15 @@ def phase_flash_attention(dev_info: dict, ptxas: dict) -> dict:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": n * bf["library_ms"],
         "ms_per_launch": bf["ms"],
-        "ptxas_dh128": ptxas,
+        "ptxas_dh128": ptxas["bfloat16"], "f32_ptxas_dh128": ptxas["float32"],
+        "device_ms": n * bf["device_ms"], "library_device_ms": n * bf["library_device_ms"],
         "f32_source": "src/repro_torch/csrc/flash_attention.cu",
         "f32_ms": n * f32["ms"], "f32_plain_ms": n * f32["plain_ms"],
         "f32_library_ms": n * f32["library_ms"], "f32_bound_ms": n * f32["bound_ms"],
+        "f32_bound_by": f32["bound_by"], "f32_device_ms": n * f32["device_ms"],
+        "f32_library_device_ms": n * f32["library_device_ms"],
+        "f32_fp32_core_bound_ms": fp32_core_ms, "f32_ms_per_launch": f32["ms"],
+        "f32_device_ms_per_launch": f32["device_ms"],
     }
 
 
@@ -971,9 +1035,51 @@ def phase_model_stack() -> dict[str, int]:
     del params, cache, last, again
     torch.cuda.empty_cache()
 
-    # (b) float32, same widths and depth: forward against the decode loop.
+    # (b) float32, same widths and depth. The prefill of (a) in float32 (a
+    # main path: 24 launches on the float32 route), held to CONSISTENCY_TOL
+    # of the same prefill on the plain attention.
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
     params = init_params(cfg32, SEED, device=dev)
+    prefill32 = make_prefill_step(cfg32)
+    ops.reset_launch_counts()
+    last32 = prefill32(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    pre32_counts = ops.launch_counts()
+    if (pre32_counts["flash_attention_bfloat16"], pre32_counts["flash_attention_float32"]) != (
+            0, cfg.n_layers):
+        fail(f"float32 prefill: flash_attention launches {pre32_counts}, want {cfg.n_layers}, "
+             f"all on the float32 route ({fa.ROUTES[torch.float32]})")
+    times = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        again = prefill32(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    pre32_s = float(np.median(times))
+    try:
+        ops.flash_attention = ref.flash_attention
+        plain32 = prefill32(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    finally:
+        ops.flash_attention = kernel_attention
+    rtol, atol = CONSISTENCY_TOL
+    abs_err, ratio = _close(last32, plain32, rtol, atol)
+    if (tuple(last32.shape) != (PREFILL_BATCH, cfg.vocab_size) or not torch.isfinite(last32).all()
+            or not torch.equal(again, last32) or ratio > 1.0):
+        fail(f"float32 prefill: logits {tuple(last32.shape)}, finite "
+             f"{bool(torch.isfinite(last32).all())}, equal on repeat {torch.equal(again, last32)}; "
+             f"against the plain attention max abs err {abs_err:.3e}, ratio {ratio:.3f} "
+             f"(rtol {rtol}, atol {atol})")
+    log(f"float32 prefill {PREFILL_BATCH} x {PREFILL_LEN} ({cfg.n_layers} layers): "
+        f"{pre32_s * 1e3:.6f} ms (median of 3, {[round(t * 1e3, 3) for t in times]}), "
+        f"{PREFILL_BATCH * PREFILL_LEN / pre32_s:.6f} tokens/s; last-token logits against the "
+        f"plain attention's prefill: max abs err {abs_err:.3e}, allclose ratio {ratio:.6f} "
+        f"(rtol {rtol}, atol {atol}); |logits| max {float(plain32.abs().max()):.3f}; "
+        f"launches {pre32_counts}")
+    del last32, again, plain32
+    torch.cuda.empty_cache()
+
+    # Forward against the decode loop over a short prompt.
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, CONSISTENCY_LEN))).to(dev)
     ops.reset_launch_counts()
     with torch.inference_mode():
@@ -1001,7 +1107,7 @@ def phase_model_stack() -> dict[str, int]:
         f"launches {f32_counts}")
     del params, cache, full, steps
     torch.cuda.empty_cache()
-    return {k: counts[k] + serve_counts[k] + f32_counts[k] for k in counts}
+    return {k: counts[k] + serve_counts[k] + pre32_counts[k] + f32_counts[k] for k in counts}
 
 
 def phase_server(dev_info: dict) -> dict[str, int]:
@@ -1082,12 +1188,14 @@ def main() -> int:
     ptxas = phase_build()
     entries = phase_kernels(dev_info)
     log(f"kernels phase: {time.perf_counter() - t0:.3f} s")
-    t1 = time.perf_counter()
-    counts = phase_main_path(dev_info)
-    log(f"main path phase: {time.perf_counter() - t1:.3f} s")
+    # Phase 5 runs before phase 4: after phase 4 the profiler has come back
+    # with empty traces (kernel_ms found no kernel in three tries).
     t1 = time.perf_counter()
     entries.append(phase_flash_attention(dev_info, ptxas))
     log(f"flash_attention phase: {time.perf_counter() - t1:.3f} s")
+    t1 = time.perf_counter()
+    counts = phase_main_path(dev_info)
+    log(f"main path phase: {time.perf_counter() - t1:.3f} s")
     for label, phase in (("model stack", phase_model_stack),
                          ("server", lambda: phase_server(dev_info))):
         t1 = time.perf_counter()

@@ -15,8 +15,10 @@ bfloat16  ``csrc/flash_attention_sm90.cu``  rtol 1e-2, atol 1e-5: one bf16
           (wgmma on the bf16 tensor        rounding of the output (p split
           cores, TMA K/V ring)             into bf16 hi + lo for p @ v)
 float32   ``csrc/flash_attention.cu``      rtol 1e-4, atol 2e-5: the
-          (IEEE float32 on the CUDA cores) reference's tolerance, which
-                                           tensor-core products would miss
+          (wgmma on the tf32 tensor        reference's tolerance, which one
+          cores, every operand split into  tf32 product would miss
+          tf32 hi + lo: three products
+          for each)
 ========  ===============================  =====================================
 
 The wrapper takes a kernel for CUDA tensors and the plain version of

@@ -1,0 +1,128 @@
+"""Time the float32 ``flash_attention`` kernel at the prefill and test shapes.
+
+    PYTHONPATH=src python -m repro_torch.launch.bench_flash [--reps 10] [--src DIR]
+
+In float32, at the internlm2-1.8b prefill shape (``chip_smoke.py``'s
+``FA_PREFILL``: q (4, 2048, 16, 128), k/v (4, 2048, 8, 128), causal) and at
+the shapes of the reference's kernel tests (``FA_TEST_SHAPES``), holds the
+kernel against its plain version (rtol 1e-4, atol 2e-5) and times it on the
+device alone (``profile_steps.kernel_ms``: the durations of the kernels one
+call launches, in a ``torch.profiler`` trace of ``reps`` x (L2 flush,
+call)), beside its bound: the larger of the bytes over the card's memory
+rate and three tf32 products for each operation the inputs need at the tf32
+tensor-core rate (one tf32 product misses the tolerance). The float32
+CUDA-core figure is printed beside it. ``--src DIR`` also loads the kernels
+of the port under ``DIR`` (an earlier tree unpacked by ``git archive``;
+its ``kernels`` package is loaded under a name of its own and builds into
+that tree) and times the two in turns, ``DIR``'s, this tree's, this tree's,
+``DIR``'s, at each shape, in one process on one card:
+
+    PYTHONPATH=src python -m repro_torch.launch.bench_flash --src build/parent/src
+
+It prints each shape and one JSON line. It needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .bench_l2 import _events_ms, _kernels
+from .profile_steps import kernel_ms
+
+__all__ = ["SHAPES", "main"]
+
+# (B, Sq, Sk, H, KV, dh, causal, window): the prefill, then the test shapes.
+PREFILL = (4, 2048, 2048, 16, 8, 128, True, 0)
+SHAPES = [PREFILL,
+          (2, 256, 256, 8, 4, 64, True, 0), (1, 256, 256, 4, 1, 128, True, 64),
+          (2, 128, 128, 8, 8, 64, False, 0), (1, 200, 256, 8, 2, 64, True, 0),
+          (1, 384, 384, 16, 16, 80, False, 0), (1, 37, 37, 4, 2, 64, False, 0),
+          (2, 50, 100, 8, 4, 32, False, 0), (1, 100, 50, 4, 4, 64, False, 0)]
+SEED = 0
+HBM_SXM = 3.35e12      # bytes/s, the H100 SXM data sheet
+TF32_TC_PEAK = 495e12  # dense tf32 tensor-core rate
+FP32_PEAK = 67e12      # float32 outside the tensor cores
+SPLIT = 3              # tf32 products a float32 operation takes (hi hi + hi lo + lo hi)
+
+
+def _pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one head."""
+    q = np.arange(sq)
+    hi = np.minimum(sk, q + 1) if causal else np.full(sq, sk)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(sq, dtype=np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--reps", type=int, default=10)
+    p.add_argument("--src", type=Path, default=None,
+                   help="the src/ directory of another port to time in turns with this one")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("bench_flash: needs a CUDA card")
+    ops, ref = _kernels(None)
+    trees = {"this": ops}
+    if args.src is not None:
+        trees["other"] = _kernels(args.src.resolve())[0]
+    turns = ["other", "this", "this", "other"] if "other" in trees else ["this"]
+    dev = torch.device("cuda")
+    buf = torch.zeros(64 << 20, dtype=torch.float32, device=dev)  # 256 MB > L2
+    flush = lambda: buf.add_(1.0)  # noqa: E731
+    rng = np.random.default_rng(SEED)
+    out = {"device": torch.cuda.get_device_name(0),
+           "src": {k: str(Path(m.__file__).resolve().parents[2]) for k, m in trees.items()},
+           "turns": turns, "shapes": []}
+    print(f"bench_flash: {out['device']}, kernels of {out['src']}, turns {turns}", flush=True)
+    for shape in SHAPES:
+        b, sq, sk, h, kv, dh, causal, window = shape
+        q, k, v = (torch.from_numpy(rng.normal(0, 1, (b, s, n, dh)).astype(np.float32)).to(dev)
+                   for s, n in ((sq, h), (sk, kv), (sk, kv)))
+        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+        row = {"shape": list(shape)}
+        for name, mod in trees.items():
+            got = mod.flash_attention(q, k, v, causal=causal, window=window)
+            err = (got.double() - want.double()).abs()
+            ratio = float((err / (2e-5 + 1e-4 * want.double().abs())).max())
+            if ratio > 1.0 or not torch.isfinite(got).all():
+                sys.exit(f"bench_flash: {name} at {shape}: allclose ratio {ratio:.3f} "
+                         "(rtol 1e-4, atol 2e-5)")
+            row[f"{name}_ratio"] = ratio
+        for i, name in enumerate(turns):
+            call = lambda m=trees[name]: m.flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                                           window=window)
+            row[f"{name}_device_ms_{i}"] = kernel_ms(call, args.reps, flush)
+        row["this_ms"] = _events_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                                window=window), args.reps, flush)
+        flops = 4 * b * h * dh * _pairs(sq, sk, causal, window)
+        nbytes = (2 * b * sq * h + 2 * b * sk * kv) * dh * 4
+        t_bytes, t_ops = nbytes / HBM_SXM * 1e3, SPLIT * flops / TF32_TC_PEAK * 1e3
+        row.update(bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   fp32_core_bound_ms=flops / FP32_PEAK * 1e3)
+        for name in trees:
+            times = [row[f"{name}_device_ms_{i}"] for i, t in enumerate(turns) if t == name]
+            row[f"{name}_device_ms"] = float(np.mean(times))
+            row[f"{name}_share_of_bound"] = row["bound_ms"] / row[f"{name}_device_ms"]
+        out["shapes"].append(row)
+        line = ", ".join(f"{t} {row[f'{t}_device_ms_{i}']:.6f}" for i, t in enumerate(turns))
+        print(f"{shape}: device_ms in turns {line}; this tree host-inclusive {row['this_ms']:.6f}; "
+              f"bound {row['bound_ms']:.6f} ({row['bound_by']}; float32 CUDA-core figure "
+              f"{row['fp32_core_bound_ms']:.6f}), this tree {row['this_share_of_bound']:.4f} of it"
+              + (f", other {row['other_share_of_bound']:.4f}; speed-up "
+                 f"{row['other_device_ms'] / row['this_device_ms']:.3f}x" if "other" in trees
+                 else ""), flush=True)
+        del q, k, v, want, got
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

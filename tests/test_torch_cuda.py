@@ -15,10 +15,11 @@ split; for ``quantized_l2``, every tile shape, D % 16 not zero, D in one
 chunk and in many, an unaligned query view, constant rows, rows that
 nearly coincide with a query and bit-identical repeats, and a CUDA
 index's device mirror; for ``flash_attention``, both
-routes (bfloat16 on the tensor cores, float32 on the CUDA cores), every
-head dim, groups that do not divide the 128-row tile, strided inputs, key
-lengths short of Sk, rows that have no real key, and the bfloat16 route's
-alignment rules.
+routes (bfloat16 and split tf32, both on the tensor cores), every head dim,
+groups that do not divide the 128-row tile, strided inputs, key lengths
+short of Sk, rows that have no real key, the bfloat16 route's alignment
+rules, and for float32 rows that do not start on 16 bytes, a peaked
+softmax (q and k scaled x3) and the internlm2 prefill shape.
 """
 
 import dataclasses
@@ -373,6 +374,67 @@ def test_flash_attention_reads_strided_inputs(cuda, dtype):
     want = ref.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
     tol = dict(rtol=1e-4, atol=2e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-5)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
+
+
+def _exact_attention(q, k, v, *, causal, window):
+    """The plain version's semantics evaluated in float64."""
+    b, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    qg = q.double().reshape(b, sq, kv, h // kv, dh)
+    s = torch.einsum("bqkgd,bckd->bkgqc", qg, k.double()) / dh ** 0.5
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (qp >= kp)
+    if window > 0:
+        mask = mask & ((qp - kp) < window)
+    s = torch.where(mask, s, torch.tensor(-1e30, dtype=torch.float64, device=q.device))
+    o = torch.einsum("bkgqc,bckd->bkgqd", torch.softmax(s, dim=-1), v.double())
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,window", [
+    (1, 256, 256, 4, 1, 128, True, 64),
+    (1, 384, 384, 16, 16, 80, False, 0),
+])
+def test_flash_attention_f32_peaked_softmax_matches_plain(cuda, b, sq, sk, h, kv, dh, causal,
+                                                          window):
+    # q and k scaled x3: scores reach about 40 and a few keys carry each row,
+    # so an unsplit p or v would miss the tolerance (test_torch_flash_tf32.py).
+    rng = np.random.default_rng(sq + sk + h + dh)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(cuda)
+               for shape in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh)))
+    q, k = 3 * q, 3 * k
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    exact = _exact_attention(q, k, v, causal=causal, window=window)
+    tol = dict(rtol=1e-4, atol=2e-5)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol)
+    np.testing.assert_allclose(got.double().cpu().numpy(), exact.cpu().numpy(), **tol)
+
+
+def test_flash_attention_f32_at_the_prefill_shape_matches_plain(cuda):
+    rng = np.random.default_rng(2048)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(cuda)
+               for shape in ((4, 2048, 16, 128), (4, 2048, 8, 128), (4, 2048, 8, 128)))
+    before = ops.launch_counts()["flash_attention_float32"]
+    got = fa.flash_attention(q, k, v, causal=True)
+    assert ops.launch_counts()["flash_attention_float32"] == before + 1
+    want = ref.flash_attention(q, k, v, causal=True)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=2e-5)
+
+
+def test_flash_attention_f32_reads_rows_off_16_bytes(cuda):
+    # Head strides of 65 floats and a base 4 bytes past 16: single-float loads.
+    rng = np.random.default_rng(65)
+    qb, kb, vb = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(cuda)
+                  for shape in ((2, 77, 8, 65), (2, 77, 2, 65), (2, 77, 2, 65)))
+    q, k, v = qb[..., 1:], kb[..., 1:], vb[..., :64]
+    assert q.data_ptr() % 16 == 4 and q.stride(2) == 65
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=2e-5)
 
 
 def test_flash_attention_route_follows_the_dtype(cuda):
