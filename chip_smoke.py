@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases (each one fails the run when it does not hold; 5 runs before 4):
+Phases (each one fails the run when it does not hold; 5 and 8 (c) run
+before 4, after which ``kernel_ms``'s traces have come back empty):
 
 1. Device: the card's name and power limit; TF32 off for matmuls and cuDNN.
 2. Build: compile the CUDA kernels from ``src/repro_torch/csrc/``; log both
@@ -60,8 +61,33 @@ Phases (each one fails the run when it does not hold; 5 runs before 4):
    against a ``decode_step`` loop over the in-memory parameters, and at
    ``bits=8``.
 
+8. Training (internlm2-1.8b widths). (a) ``make_train_step`` at the full
+   depth (24 layers, bfloat16, remat) on 4 x 2048 ``SyntheticLM`` batches,
+   5 steps: ms, tokens/s, loss, peak memory and the bfloat16
+   ``flash_attention`` launches of each (48: forward and remat's
+   recompute), the step's operations and bound; the loss must be finite
+   and fall. (e) One more step traced (``profile_steps.trace_train_step``).
+   (b) ``loss_fn``'s value and gradients at 4 layers in float32 on the
+   kernel route against the plain attention (autograd of
+   ``ref.flash_attention``), held to ``GRAD_LOSS_RTOL`` and
+   ``GRAD_LEAF_RTOL``; the same in bfloat16 printed. (c) The attention's
+   forward + backward alone at the train shape, bfloat16 and float32,
+   against autograd of the plain version, timed host-inclusive and
+   device-only beside ``scaled_dot_product_attention``'s forward +
+   backward. (d) ``Trainer`` at ``TRAINER_LAYERS`` layer: 3 steps with an
+   async checkpoint and the final one, its losses held to the same steps
+   on the plain attention (``TRAINER_LOSS_RTOL``), a second ``Trainer`` on
+   the same store that resumes (step, params and moments held to
+   ``RESTORE_ATOL``), then ``ModelServer`` generating from the last
+   checkpoint: its parameters held to the trained ones (``RESTORE_ATOL``),
+   its tokens and logits to the in-memory decode of the trained ones.
+
 Each path's launch counts are set to 0 just before it and read just after;
-the run fails unless every kernel was launched on some path. The last line
+the run fails unless every kernel was launched on some path. The inputs
+each path gives ``flash_attention`` and ``quantized_l2`` are recorded
+(their shapes, masks and dtype), and after the path each kernel is held
+against its plain version, on random inputs, at every such input that no
+earlier phase held. The last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the repository beside it, the script exits non-zero and prints no
 result. It imports nothing of JAX and nothing of the ``repro`` package.
@@ -69,6 +95,7 @@ result. It imports nothing of JAX and nothing of the ``repro`` package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -140,6 +167,43 @@ CONSISTENCY_LEN = 32
 # test_prefill_decode_consistency holds 2e-2 / 2e-3, far looser than that.
 CONSISTENCY_TOL = (1e-3, 1e-3)
 SERVE_LAYERS = 2  # phase 7's depth: the checkpoint save is host numpy
+# Phase 8 (training). (a): internlm2-1.8b as published (24 layers, bf16,
+# remat), make_train_step on 4 x 2048 SyntheticLM batches at the Trainer's
+# default learning rate. About 1.89 B parameters: bf16 params and grads and
+# float32 m and v come to about 22.7 GB, the float32 logits to 3.0 GB.
+TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, TRAIN_LR = 4, 2048, 5, 3e-4
+# (b): loss_fn's value and gradients at the same widths in float32, kernel
+# route against the plain attention, at a cut depth. The kernel route runs
+# the kernel forward and ref.flash_attention_backward; the plain route is
+# autograd of ref.flash_attention, which shares no code with that backward.
+# The loss within GRAD_LOSS_RTOL, every gradient leaf within GRAD_LEAF_RTOL
+# relative L2 error (||g - g_ref|| / ||g_ref||): the float32 kernel sits
+# within rtol 1e-4 of the plain attention.
+GRAD_LAYERS, GRAD_LOSS_RTOL, GRAD_LEAF_RTOL = 4, 1e-5, 1e-3
+# (d): the Trainer at internlm2 widths, depth cut to 1 layer: each
+# checkpoint save of params, m and v is host numpy (on the H100 machine's
+# host 128-171 s at 2 layers, 88-130 s at 1), most of it the embedding and
+# the LM head.
+TRAINER_LAYERS, TRAINER_BATCH, TRAINER_LEN = 1, 2, 512
+# The Trainer's losses against the same steps replayed on the plain
+# attention (its step_fn, init and batches), relative. A step lowers the
+# loss by 3e-3 to 7e-3 relative at this size (11.921, 11.881, 11.803 on an
+# H100), so a Trainer that skipped an update or took another batch or rate
+# misses this; (b)'s bfloat16 loss sat 3.2e-7 from the plain one.
+TRAINER_LOSS_RTOL = 1e-3
+# The served logits against the in-memory decode of the trained parameters,
+# relative L2 a step. The restored tensors equal the trained ones within
+# RESTORE_ATOL, but the bfloat16 decode over them rounds its logits
+# differently (on an H100: 2.9e-3 relative L2, one logit 3.1e-2 off, past
+# rtol/atol 2^-7 elementwise); a bfloat16 rounding step is 2^-8 to 2^-7
+# of a value. A restore that swapped, dropped or misplaced a tensor moves
+# them by far more.
+SERVED_LOGITS_RTOL = 2.0 ** -8
+# A restored leaf against the trained one: the store reconstructs float32
+# within 2^-23 (its default tolerance 2^-24; the reference's round-trip
+# test), and a bfloat16 leaf is the bfloat16 nearest that value, at most
+# 2^-23 further from it.
+RESTORE_ATOL = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -22}
 
 
 def log(msg: str) -> None:
@@ -196,6 +260,86 @@ def _close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> t
     err = (got.double() - want.double()).abs()
     ratio = err / (atol + rtol * want.double().abs())
     return float(err.max()), float(ratio.max())
+
+
+def _fa_key(q, k, causal, window, sk_true) -> tuple:
+    return tuple(q.shape), tuple(k.shape), bool(causal), int(window), sk_true, q.dtype
+
+
+@contextlib.contextmanager
+def _recording():
+    """The distinct inputs the kernels get inside the block, through the
+    seams the model stack and the HNSW index reach them by
+    (``ops.flash_attention``, ``ops.quantized_l2``): ``{"flash_attention":
+    {_fa_key}, "quantized_l2": {(B, N, D)}}``. The calls pass through."""
+    from repro_torch.kernels import ops
+
+    seen = {"flash_attention": set(), "quantized_l2": set()}
+    fa, ql2 = ops.flash_attention, ops.quantized_l2
+
+    def flash_attention(q, k, v, *, causal=True, window=0, sk_true=None, **kw):
+        seen["flash_attention"].add(_fa_key(q, k, causal, window, sk_true))
+        return fa(q, k, v, causal=causal, window=window, sk_true=sk_true, **kw)
+
+    def quantized_l2(queries, codes, *rest):
+        seen["quantized_l2"].add((queries.shape[0], *codes.shape))
+        return ql2(queries, codes, *rest)
+
+    ops.flash_attention, ops.quantized_l2 = flash_attention, quantized_l2
+    try:
+        yield seen
+    finally:
+        ops.flash_attention, ops.quantized_l2 = fa, ql2
+
+
+def _hold_recorded(label: str, seen: dict, held: dict, entries: list) -> None:
+    """Hold ``flash_attention`` and ``quantized_l2`` against their plain
+    versions at every input shape a main path gave them (``_recording``)
+    that no phase has held yet, on random inputs from ``SEED``. Run after
+    the path's counts were read: these launches count on no path."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    worst = {}
+    for key in sorted(seen["flash_attention"] - held["flash_attention"], key=str):
+        q_shape, k_shape, causal, window, sk_true, dtype = key
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                   for s in (q_shape, k_shape, k_shape))
+        got = fa.flash_attention(q, k, v, causal=causal, window=window, sk_true=sk_true)
+        want = ref.flash_attention(q, k, v, causal=causal, window=window, sk_true=sk_true)
+        rtol, atol = (1e-4, 2e-5) if dtype == torch.float32 else FA_BF16_TOL
+        abs_err, ratio = _close(got, want, rtol, atol)
+        line = (f"{label}: flash_attention held at the path's q {q_shape} k/v {k_shape} "
+                f"causal={causal} window={window} sk_true={sk_true} {dtype}: max abs err "
+                f"{abs_err:.3e}, allclose ratio {ratio:.3f} (rtol {rtol}, atol {atol})")
+        if got.dtype != dtype or not torch.isfinite(got).all() or ratio > 1.0:
+            fail(line)
+        log(line)
+        worst["flash_attention"] = max(worst.get("flash_attention", 0.0), abs_err)
+        held["flash_attention"].add(key)
+        del q, k, v, got, want
+    for b, n, d in sorted(seen["quantized_l2"] - held["quantized_l2"]):
+        q = torch.randn(d, generator=gen, device=dev) + torch.randn(
+            b, d, generator=gen, device=dev) * (0.01 * torch.arange(1, b + 1, device=dev)[:, None])
+        codes = torch.empty((n, d), dtype=torch.uint8, device=dev).random_(generator=gen)
+        f64 = dict(dtype=torch.float64, device=dev)
+        scales = 1e-3 + 1.9e-2 * torch.rand(n, generator=gen, **f64)
+        if n > 1:
+            scales[n - 1] = 0.0  # a constant row
+        zps = torch.randint(0, 256, (n,), generator=gen, **f64)
+        mids = 0.5 * torch.randn(n, generator=gen, **f64)
+        abs_err, ratio = _hold_l2((q, codes, scales, zps, mids))
+        log(f"{label}: quantized_l2 held at the path's B={b} N={n} D={d}: max abs err "
+            f"{abs_err:.3e}, ratio {ratio:.3f} (rtol 2e-3), same argmin")
+        worst["quantized_l2"] = max(worst.get("quantized_l2", 0.0), abs_err)
+        held["quantized_l2"].add((b, n, d))
+        del q, codes
+    for e in entries:
+        if e["name"] in worst:
+            e["max_abs_err"] = max(e["max_abs_err"], worst[e["name"]])
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------- phases
@@ -333,7 +477,34 @@ def phase_build() -> dict:
     return {"bfloat16": stats[FA_PREFILL[5]], "float32": f32[FA_PREFILL[5]]}
 
 
-def phase_kernels(dev_info: dict) -> list[dict]:
+def _hold_l2(args) -> tuple[float, float]:
+    """``quantized_l2``'s kernel against its plain version on ``args``
+    (queries, codes, scales, zps, mids on the card): within rtol 2e-3, the
+    same argmin, bit-identical on a repeat. Returns (max abs err, ratio).
+    The plain version runs on a few code rows at a time (each row's
+    distances are its own), so its float64 temporaries stay under 2^28
+    elements at any N."""
+    from repro_torch.kernels import ops, ref
+
+    q, codes = args[0], args[1]
+    (b, d), n = q.shape, codes.shape[0]
+    got = ops.quantized_l2(*args)
+    again = ops.quantized_l2(*args)
+    rows = max(1, (1 << 28) // d)
+    want = torch.cat([ref.quantized_l2(q, *(a[i:i + rows] for a in args[1:]))
+                      for i in range(0, n, rows)], dim=1)
+    torch.cuda.synchronize()
+    abs_err, ratio = _close(got, want, 2e-3, 0.0)
+    if (not torch.isfinite(got).all() or ratio > 1.0 or not torch.equal(got, again)
+            or not torch.equal(got.argmin(dim=1), want.argmin(dim=1))):
+        fail(f"quantized_l2 B={b} N={n} D={d}: max abs err {abs_err:.3e}, "
+             f"rel ratio {ratio:.3f} (rtol 2e-3), argmin "
+             f"{got.argmin(dim=1).tolist()} vs {want.argmin(dim=1).tolist()}, "
+             f"bit-identical on repeat {torch.equal(got, again)}")
+    return abs_err, ratio
+
+
+def phase_kernels(dev_info: dict, held: dict) -> list[dict]:
     from repro_torch.kernels import ops, ref
 
     bw = dev_info["bandwidth"]
@@ -428,17 +599,8 @@ def phase_kernels(dev_info: dict) -> list[dict]:
         q = torch.from_numpy(q_host).to(dev)
         codes = torch.from_numpy(codes_host).to(dev)
         args = (q, codes, scales, zps, mids)
-        got = ops.quantized_l2(*args)
-        want = ref.quantized_l2(*args)
-        again = ops.quantized_l2(*args)
-        torch.cuda.synchronize()
-        abs_err, ratio = _close(got, want, 2e-3, 0.0)
-        if (not torch.isfinite(got).all() or ratio > 1.0 or not torch.equal(got, again)
-                or not torch.equal(got.argmin(dim=1), want.argmin(dim=1))):
-            fail(f"quantized_l2 B={b} N={n} D={d}: max abs err {abs_err:.3e}, "
-                 f"rel ratio {ratio:.3f} (rtol 2e-3), argmin "
-                 f"{got.argmin(dim=1).tolist()} vs {want.argmin(dim=1).tolist()}, "
-                 f"bit-identical on repeat {torch.equal(got, again)}")
+        abs_err, ratio = _hold_l2(args)
+        held["quantized_l2"].add((b, n, d))
 
         def library():
             dot = q @ codes.to(torch.float32).T
@@ -479,7 +641,7 @@ def phase_kernels(dev_info: dict) -> list[dict]:
         tot["query_copy_ms"] += mult * query_copy_ms
         tot["bytes"] += mult * nbytes
         tot["flops"] += mult * flops
-        del q, codes, args, got, want, again, q_host64
+        del q, codes, args, q_host64
     t_bytes, t_ops = tot["bytes"] / bw * 1e3, tot["flops"] / FP32_PEAK * 1e3
     log(f"quantized_l2 per fine-tune save: kernel {tot['ms']:.6f} ms, device_ms "
         f"{tot['device_ms']:.6f} ({max(t_bytes, t_ops) / tot['device_ms']:.4f} of the "
@@ -546,7 +708,7 @@ def _single_bf16_p(q, k, v, *, causal=True, window=0, sk_true=None):
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
 
 
-def phase_flash_attention(dev_info: dict, ptxas: dict) -> dict:
+def phase_flash_attention(dev_info: dict, ptxas: dict, held: dict) -> dict:
     """Phase 5: both routes against the plain version, with times."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
@@ -577,6 +739,7 @@ def phase_flash_attention(dev_info: dict, ptxas: dict) -> dict:
             fail(f"{name}: max abs err {abs_err:.3e}, allclose ratio {ratio:.3f} "
                  f"(rtol {rtol}, atol {atol}); route {route} launches "
                  f"{ops.launch_counts()[key] - before}")
+        held["flash_attention"].add(_fa_key(q, k, causal, window, None))
         big = sq * sk >= 1 << 22
         ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
                       10 if big else 20, flush)
@@ -871,7 +1034,7 @@ def _greedy(params, cfg, prompts: torch.Tensor, steps: int):
 
     b, s0 = prompts.shape
     with torch.inference_mode():
-        cache = init_cache(cfg, b, s0 + steps)
+        cache = init_cache(cfg, b, s0 + steps, device=prompts.device)
         for t in range(s0):
             logits, cache = decode_step(params, cache, {"tokens": prompts[:, t:t + 1]}, t, cfg)
         toks, all_logits = [], []
@@ -1177,6 +1340,417 @@ def phase_server(dev_info: dict) -> dict[str, int]:
     return counts
 
 
+def _attention_flops(b: int, h: int, dh: int, pairs: int) -> dict[str, int]:
+    """Operations of attention over ``pairs`` unmasked (query, key) pairs a
+    head: the forward's two products (s = q kᵀ, o = p v) and the five a
+    backward needs (s again, dp = do vᵀ, dv = pᵀ do, dq = ds k, dk = dsᵀ q)."""
+    unit = 2 * b * h * dh * pairs
+    return {"forward": 2 * unit, "backward": 5 * unit}
+
+
+def phase_attention_backward(dev_info: dict) -> dict:
+    """Phase 8 (c), run beside phase 5 (before phase 4, after which
+    ``kernel_ms``'s traces have come back empty): forward + backward of
+    the attention through ``FlashAttentionFn`` at the train shape, bf16
+    and float32, causal, against autograd of the plain version and timed
+    beside ``scaled_dot_product_attention``'s forward + backward."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch.profile_steps import kernel_ms
+
+    bw = dev_info["bandwidth"]
+    b, sq, sk, h, kv, dh, causal, window = FA_PREFILL
+    rng = np.random.default_rng(SEED + 8)
+    dev = torch.device("cuda")
+    # A float64 flush: no kernel of the timed calls shares its name.
+    flush = torch.zeros(32 << 20, dtype=torch.float64, device=dev)
+
+    def device_ms(fn, match=None):
+        try:
+            return kernel_ms(fn, 10, lambda: flush.add_(1.0), match)
+        except RuntimeError as exc:
+            fail(f"device time not measured: {exc}")
+
+    flops = _attention_flops(b, h, dh, _attention_pairs(sq, sk, causal, window))
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        q, k, v, do = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(dev, dtype)
+                       for shape in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh),
+                                     (b, sq, h, dh)))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        do_sdpa = do.transpose(1, 2)
+
+        def port():
+            o = fa.flash_attention(*leaves, causal=causal)
+            return torch.autograd.grad(o, leaves, do)
+
+        def forward():
+            with torch.no_grad():
+                fa.flash_attention(q, k, v, causal=causal)
+
+        def library():
+            o = _sdpa(*leaves, causal, window)
+            return torch.autograd.grad(o, leaves, do_sdpa)
+
+        def plain():
+            o = ref.flash_attention(*leaves, causal=causal)
+            return torch.autograd.grad(o, leaves, do)
+
+        got, want = port(), plain()
+        torch.cuda.synchronize()
+        rtol = 1e-4 if dtype == torch.float32 else FA_BF16_TOL[0]
+        worst = 0.0
+        for g, w in zip(got, want):
+            scale = float(w.float().abs().max()) + 1e-6
+            abs_err, ratio = _close(g.float(), w.float(), rtol, 1e-5 * scale)
+            worst = max(worst, ratio)
+            if g.dtype != dtype or not torch.isfinite(g).all() or ratio > 1.0:
+                fail(f"attention backward {name}: max abs err {abs_err:.3e}, allclose ratio "
+                     f"{ratio:.3f} (rtol {rtol}, atol 1e-5 x {scale:.3g}) against autograd of "
+                     "the plain version")
+        del got, want
+        ms = _time_ms(port, 5, flush)
+        lib_ms = _time_ms(library, 5, flush)
+        plain_ms = _time_ms(plain, 3, flush)
+        dev_ms, fwd_ms, lib_dev_ms = device_ms(port), device_ms(forward, "flash_attn"), \
+            device_ms(library)
+        need = flops["forward"] + flops["backward"]
+        if dtype == torch.bfloat16:
+            t_ops = need / BF16_TC_PEAK
+        else:
+            t_ops = F32_SPLIT * need / TF32_TC_PEAK
+        nbytes = (2 * b * sq * h + 2 * b * sk * kv) * dh * q.element_size() * 2
+        bound = max(nbytes / bw, t_ops) * 1e3
+        log(f"attention forward + backward at the train shape {FA_PREFILL[:6]} causal {name} "
+            f"through FlashAttentionFn (kernel forward, plain float32 backward): ms {ms:.6f} "
+            f"device_ms {dev_ms:.6f} (forward kernel {fwd_ms:.6f}, backward "
+            f"{dev_ms - fwd_ms:.6f}); scaled_dot_product_attention forward + backward ms "
+            f"{lib_ms:.6f} device_ms {lib_dev_ms:.6f} (port/library {dev_ms / lib_dev_ms:.3f}); "
+            f"autograd of the plain version ms {plain_ms:.6f}; bound {bound:.6f} ms on the "
+            f"{need} operations the inputs need ({bound / dev_ms:.4f} of it); "
+            f"gradients within rtol {rtol} of autograd of the plain version (ratio "
+            f"{worst:.3f})")
+        out[name] = {"ms": ms, "device_ms": dev_ms, "forward_device_ms": fwd_ms,
+                     "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound}
+        del q, k, v, do, leaves, do_sdpa
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel_l2(got: dict, want: dict) -> dict[str, float]:
+    """||g - w|| / ||w|| of each leaf, in float64."""
+    return {k: float((got[k].double() - want[k].double()).norm()
+                     / want[k].double().norm().clamp_min(1e-30)) for k in want}
+
+
+def _value_and_grad(params, batch, cfg, attention):
+    """loss_fn and its gradients with ``attention`` behind the model's
+    seam (``ops.flash_attention``), for the forward and for remat's
+    recompute in the backward alike."""
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.kernels import ops
+    from repro_torch.models import loss_fn
+    from repro_torch.tree import tree_map
+
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    flat = _flatten(leaves)
+    kernel_attention = ops.flash_attention
+    try:
+        ops.flash_attention = attention
+        loss = loss_fn(leaves, batch, cfg)[0]
+        grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
+    finally:
+        ops.flash_attention = kernel_attention
+    grads = {k: torch.zeros_like(t) if g is None else g for (k, t), g in zip(flat.items(), grads)}
+    return float(loss.detach()), grads
+
+
+def _step_flops(cfg, tokens: int) -> tuple[int, int]:
+    """(operations a remat train step needs, the attention's share): the
+    matmuls' 2 per weight and token forward, 4 backward, and 2 more for the
+    layers' recomputed forward (the LM head is not recomputed); attention
+    forward twice (remat) and backward once, at ``TRAIN_LEN`` causal."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    layer = d * (2 * h + 2 * kv) * dh + 3 * d * cfg.d_ff
+    head = d * cfg.vocab_size
+    matmul = 2 * tokens * ((layer * cfg.n_layers + head) * 3 + layer * cfg.n_layers)
+    att = _attention_flops(tokens // TRAIN_LEN, h, dh,
+                           _attention_pairs(TRAIN_LEN, TRAIN_LEN, True, 0))
+    att_total = cfg.n_layers * (2 * att["forward"] + att["backward"])
+    return matmul + att_total, att_total
+
+
+def phase_training(dev_info: dict) -> dict[str, int]:
+    """Phase 8 (a), (e), (b), (d): train steps at full width and depth and
+    their trace, the gradient check, the Trainer with store checkpoints."""
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.profile_steps import trace_train_step
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+
+    cfg = _internlm2()
+    dev = torch.device("cuda")
+    bw = dev_info["bandwidth"]
+    data = SyntheticLM(cfg.vocab_size, seed=SEED)
+
+    def batch_at(step, size, length):
+        return {k: torch.from_numpy(v).to(dev) for k, v in data.batch(step, size, length).items()}
+
+    # (a) train steps: a main path, counted.
+    params = init_params(cfg, SEED + 8, device=dev)
+    opt = adamw_init(params)
+    n_params = sum(t.numel() for t in _flatten(params).values())
+    step_fn = make_train_step(cfg, 1, lr=TRAIN_LR)
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    flops, att_flops = _step_flops(cfg, tokens)
+    # Bytes a step must move at least: the weights read by the forward, the
+    # recompute and the backward (3 p), the grads written and read (2 p), and
+    # AdamW's read and write of p (2 p) and of the float32 m and v (16 a
+    # parameter).
+    p_bytes = sum(t.numel() * t.element_size() for t in _flatten(params).values())
+    step_bytes = 7 * p_bytes + 16 * n_params
+    t_ops, t_bytes = flops / BF16_TC_PEAK * 1e3, step_bytes / bw * 1e3
+    log(f"training: {cfg.name} as published ({cfg.n_layers} layers, {cfg.param_dtype}, remat "
+        f"{cfg.remat}), {n_params} parameters; make_train_step (1 microbatch, lr {TRAIN_LR}) on "
+        f"{TRAIN_BATCH} x {TRAIN_LEN} SyntheticLM batches; {flops} operations a step "
+        f"({att_flops} in the attention), bound {max(t_ops, t_bytes):.6f} ms "
+        f"({t_ops:.6f} at {BF16_TC_PEAK / 1e12:.0f} TFLOP/s bf16, {t_bytes:.6f} for "
+        f"{step_bytes} bytes)")
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        batch = batch_at(i, TRAIN_BATCH, TRAIN_LEN)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = ops.launch_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        losses.append(loss)
+        times.append(dt)
+        log(f"train step {i}: {dt * 1e3:.6f} ms, {tokens / dt:.6f} tokens/s, loss {loss:.6f}, "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, flash_attention "
+            f"launches bf16 {launched['flash_attention_bfloat16']} float32 "
+            f"{launched['flash_attention_float32']} (want {2 * cfg.n_layers} bf16: forward and "
+            f"remat's recompute), {flops / dt / 1e12:.3f} TFLOP/s")
+        if (launched["flash_attention_bfloat16"], launched["flash_attention_float32"]) != (
+                2 * cfg.n_layers, 0):
+            fail(f"train step {i}: flash_attention launches {launched}, want "
+                 f"{2 * cfg.n_layers} on the bfloat16 route")
+    train_counts = ops.launch_counts()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train steps: losses {losses} (want finite, the last below the first)")
+    step_s = float(np.median(times[1:]))
+    log(f"train steps: median {step_s * 1e3:.6f} ms of steps 1-{TRAIN_STEPS - 1} "
+        f"({[round(t * 1e3, 3) for t in times]}), {tokens / step_s:.6f} tokens/s, "
+        f"{flops / step_s / 1e12:.3f} TFLOP/s, {max(t_ops, t_bytes) / (step_s * 1e3):.4f} of "
+        f"the bound; losses {losses}")
+
+    # (e) one more step traced (not counted: a measurement).
+    tr = trace_train_step(step_fn, params, opt, batch_at(TRAIN_STEPS, TRAIN_BATCH, TRAIN_LEN),
+                          plain_ms=step_s * 1e3)
+    if tr["kernels"] <= 0:
+        fail("train step trace: no kernel in the trace")
+    log(f"trace train step: plain {tr['plain_wall_ms']:.6f} ms, profiled {tr['wall_ms']:.6f} ms, "
+        f"device busy {tr['device_busy_ms']:.6f} ms ({tr['busy_share_of_plain']:.4f} of the "
+        f"plain step, idle {1 - tr['busy_share_of_plain']:.4f}), {tr['kernels']:.1f} kernels and "
+        f"{tr['host_ops']:.1f} host ops a step, median gap {tr['median_gap_us']:.3f} us; "
+        f"flash_attn {tr['match_ms']:.6f} ms, {tr['match_share_of_busy']:.4f} of busy; top "
+        + ", ".join(f"{k['name'][:60]} {k['ms']:.4f} ms x{k['count']:.0f}"
+                    for k in tr["top_kernels"]))
+    del params, opt, metrics
+    torch.cuda.empty_cache()
+
+    # (b) the gradient check (a check, not counted).
+    for dtype_name in ("float32", "bfloat16"):
+        gcfg = dataclasses.replace(cfg, n_layers=GRAD_LAYERS, param_dtype=dtype_name,
+                                   compute_dtype=dtype_name)
+        params = init_params(gcfg, SEED + 9, device=dev)
+        batch = batch_at(0, TRAIN_BATCH, TRAIN_LEN)
+        before = ops.launch_counts()
+        loss_k, g_k = _value_and_grad(params, batch, gcfg, ops.flash_attention)
+        launched = {k: n - before[k] for k, n in ops.launch_counts().items()}
+        loss_p, g_p = _value_and_grad(params, batch, gcfg, ref.flash_attention)
+        torch.cuda.synchronize()
+        rel = _rel_l2(g_k, g_p)
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        line = (f"gradient check {dtype_name}, {GRAD_LAYERS} layers at internlm2 widths, "
+                f"{TRAIN_BATCH} x {TRAIN_LEN}: loss {loss_k:.8f} on the kernel, {loss_p:.8f} on "
+                f"the plain attention (relative {loss_rel:.3e}); gradient relative L2 error max "
+                f"{rel[worst]:.3e} ({worst}), median {float(np.median(list(rel.values()))):.3e} "
+                f"over {len(rel)} leaves; kernel launches "
+                f"{launched['flash_attention_' + dtype_name]}")
+        if dtype_name == "float32":
+            if (loss_rel > GRAD_LOSS_RTOL or rel[worst] > GRAD_LEAF_RTOL
+                    or launched["flash_attention_float32"] != 2 * GRAD_LAYERS
+                    or not all(torch.isfinite(g).all() for g in g_k.values())):
+                fail(f"{line} (want the loss within {GRAD_LOSS_RTOL}, every leaf within "
+                     f"{GRAD_LEAF_RTOL}, {2 * GRAD_LAYERS} float32 launches)")
+            line += f" (gated: loss {GRAD_LOSS_RTOL}, a leaf {GRAD_LEAF_RTOL})"
+        else:
+            line += " (printed, not gated)"
+        log(line)
+        del params, g_k, g_p
+        torch.cuda.empty_cache()
+
+    # (d) the Trainer with store checkpoints: a main path, counted.
+    trainer_counts = _trainer_checkpoints(cfg, dev)
+    return {k: train_counts[k] + trainer_counts[k] for k in train_counts}
+
+
+def _trainer_checkpoints(cfg, dev) -> dict[str, int]:
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import ModelServer
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+
+    tcfg = dataclasses.replace(cfg, n_layers=TRAINER_LAYERS)
+    log(f"trainer: {cfg.name} widths, depth cut from {cfg.n_layers} layers to {TRAINER_LAYERS} "
+        f"(the checkpoint saves are host numpy), {tcfg.param_dtype}; {TRAINER_BATCH} x "
+        f"{TRAINER_LEN} batches")
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="chip_smoke_train_") as root:
+        ops.reset_launch_counts()
+        saves = []
+        tr = Trainer(tcfg, root, ckpt_every=2, seed=SEED, device=dev)
+        _time_saves(tr, saves)
+        rep = tr.fit(steps=3, batch=TRAINER_BATCH, seq=TRAINER_LEN)
+        first_counts = ops.launch_counts()
+        log(f"trainer fit: steps {rep.start_step}-{rep.end_step}, losses {rep.losses}, step s "
+            f"{[round(t, 4) for t in rep.step_seconds]}, checkpoint saves (step, s) {saves} "
+            f"(step 2 async, step 3 blocking); launches {first_counts}")
+        if rep.resumed or not all(np.isfinite(rep.losses)) or [s for s, _ in saves] != [2, 3]:
+            fail(f"trainer fit: resumed {rep.resumed}, losses {rep.losses}, saves {saves}")
+        # The same steps replayed on the plain attention (a check, not counted).
+        params = init_params(tcfg, tr.seed, dev)
+        opt = adamw_init(params)
+        plain, kernel_attention = [], ops.flash_attention
+        try:
+            ops.flash_attention = ref.flash_attention
+            for step in range(rep.start_step, rep.end_step):
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in tr.data.batch(step, TRAINER_BATCH, TRAINER_LEN).items()}
+                params, opt, metrics = tr.step_fn(params, opt, batch)
+                plain.append(float(metrics["loss"]))
+        finally:
+            ops.flash_attention = kernel_attention
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rep.losses, plain))
+        line = (f"trainer losses against the same steps on the plain attention {plain}: "
+                f"max relative difference {loss_rel:.3e} (TRAINER_LOSS_RTOL {TRAINER_LOSS_RTOL})")
+        if not loss_rel <= TRAINER_LOSS_RTOL:
+            fail(line)
+        log(line)
+        del params, opt
+        # The second Trainer's resume: what its fit runs before its first step.
+        tr2 = Trainer(tcfg, root, ckpt_every=2, seed=SEED, device=dev)
+        t0 = time.perf_counter()
+        step, params, opt, resumed = tr2._init_or_resume()
+        resume_s = time.perf_counter() - t0
+        got = _flatten({"params": params, "opt": opt})
+        want = _flatten({"params": tr._params, "opt": tr._opt})
+        worst = {}
+        for key, w in want.items():
+            g = got.get(key)
+            if g is None or g.dtype != w.dtype or g.device.type != dev.type:
+                fail(f"resume: leaf {key} {None if g is None else (g.dtype, g.device)}, want "
+                     f"{w.dtype} on the card")
+            worst[key] = float((g.double() - w.double()).abs().max())
+        bad = {k: d for k, d in worst.items() if d > RESTORE_ATOL.get(want[k].dtype, 0.0)}
+        log(f"trainer resume: a second Trainer on the store: resumed {resumed}, start step "
+            f"{step} (saved {rep.end_step}), restore {resume_s:.6f} s; restored leaves against "
+            f"the first trainer's: max abs diff params "
+            f"{max(d for k, d in worst.items() if k.startswith('params')):.3e}, m "
+            f"{max(d for k, d in worst.items() if k.startswith('opt//m')):.3e}, v "
+            f"{max(d for k, d in worst.items() if k.startswith('opt//v')):.3e}, step "
+            f"{int(opt['step'])} ({opt['step'].dtype}); RESTORE_ATOL {RESTORE_ATOL}")
+        if (not resumed or step != rep.end_step or bad or set(got) != set(want)
+                or int(opt["step"]) != rep.end_step):
+            fail(f"trainer resume: resumed {resumed}, step {step}, leaves past RESTORE_ATOL "
+                 f"{bad}")
+        counts = first_counts
+        del params, opt
+
+        ops.reset_launch_counts()
+        srv = ModelServer(tcfg, root, bits=None, device=dev)
+        t0 = time.perf_counter()
+        served = srv.load()
+        load_s = time.perf_counter() - t0
+        prompts = np.random.default_rng(SEED + 8).integers(0, tcfg.vocab_size,
+                                                            (BATCH, PROMPT_LEN))
+        toks, stats = srv.generate(served, prompts, max_new_tokens=STEPS)
+        for k, n in ops.launch_counts().items():
+            counts[k] += n
+        if served != rep.end_step or toks.shape != (BATCH, STEPS):
+            fail(f"trainer server: step {served}, tokens {toks.shape}")
+        # The server's parameters against the trained ones, as in phase 7.
+        restored, trained = _flatten(srv._models[served]), _flatten(tr._params)
+        if sorted(restored) != sorted(trained):
+            fail(f"trainer server: restored tensors {sorted(restored)}")
+        diffs = {k: float((restored[k].double() - t.double()).abs().max())
+                 for k, t in trained.items()}
+        bad = {k: d for k, d in diffs.items() if d > RESTORE_ATOL.get(trained[k].dtype, 0.0)}
+        if bad:
+            fail(f"trainer server: restored tensors past RESTORE_ATOL {bad}")
+        # The server's decode loop run again on its parameters, for its
+        # logits: its tokens must be the server's, and its logits those of
+        # the in-memory decode of the trained parameters, step by step until
+        # a near tie splits the two (the first step's are the prompt's).
+        prompts_t = torch.from_numpy(prompts).to(dev)
+        got_toks, got_logits = _greedy(srv._models[served], tcfg, prompts_t, STEPS)
+        if not torch.equal(torch.from_numpy(toks).to(dev, torch.int64), got_toks):
+            fail("trainer server: its tokens differ from its decode loop's on the same "
+                 "parameters")
+        want_toks, want_logits = _greedy(tr._params, tcfg, prompts_t, STEPS)
+        compared = _check_tokens("trainer server", got_toks, want_toks, want_logits, 2 ** -7)
+        rel = [float((got_logits[:, i].double() - want_logits[:, i].double()).norm()
+                     / want_logits[:, i].double().norm()) for i in range(compared)]
+        max_abs = float((got_logits[:, :compared] - want_logits[:, :compared]).abs().max())
+        line = (f"trainer server: step {served} loaded in {load_s:.6f} s, "
+                f"{stats['tokens_per_s']:.6f} tokens/s; restored tensors against the trained "
+                f"ones max abs diff {max(diffs.values()):.3e} (RESTORE_ATOL); tokens equal the "
+                f"in-memory decode of the trained parameters over {compared} steps, logits "
+                f"relative L2 error max {max(rel):.3e} (SERVED_LOGITS_RTOL "
+                f"{SERVED_LOGITS_RTOL:.3e}), max abs {max_abs:.3e}")
+        if max(rel) > SERVED_LOGITS_RTOL:
+            fail(line)
+        log(line)
+        srv.mgr.close()
+        tr.mgr.close()
+        tr2.mgr.close()
+    del tr, tr2, srv
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _time_saves(trainer, saves: list) -> None:
+    """Record (step, seconds) of each store save a trainer makes: the
+    engine's own save timing, in whichever thread the save runs."""
+    engine = trainer.mgr.engine
+    save_model = engine.save_model
+
+    def timed(name, architecture, tensors, *args, **kwargs):
+        report = save_model(name, architecture, tensors, *args, **kwargs)
+        saves.append((int(architecture["step"]), round(report.seconds, 6)))
+        return report
+
+    engine.save_model = timed
+
+
 def main() -> int:
     dev_info = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
@@ -1186,22 +1760,35 @@ def main() -> int:
         fail(f"the port is not beside this script ({exc}); run it from the repository root")
     t0 = time.perf_counter()
     ptxas = phase_build()
-    entries = phase_kernels(dev_info)
+    # The inputs each kernel has been held at against its plain version.
+    held = {"flash_attention": set(), "quantized_l2": set()}
+    entries = phase_kernels(dev_info, held)
     log(f"kernels phase: {time.perf_counter() - t0:.3f} s")
-    # Phase 5 runs before phase 4: after phase 4 the profiler has come back
-    # with empty traces (kernel_ms found no kernel in three tries).
+    counts: dict[str, int] = {}
+
+    def main_path(label, phase):
+        t1 = time.perf_counter()
+        with _recording() as seen:
+            path_counts = phase()
+        for name, n in path_counts.items():
+            counts[name] = counts.get(name, 0) + n
+        _hold_recorded(label, seen, held, entries)
+        log(f"{label} phase: {time.perf_counter() - t1:.3f} s")
+
+    # Phases 5 and 8 (c) run before phase 4: after phase 4, kernel_ms's
+    # scheduled traces have come back without a kernel three times in a row,
+    # padded or not, while phase 4's own (unscheduled) traces kept theirs.
     t1 = time.perf_counter()
-    entries.append(phase_flash_attention(dev_info, ptxas))
+    fa_entry = phase_flash_attention(dev_info, ptxas, held)
+    entries.append(fa_entry)
     log(f"flash_attention phase: {time.perf_counter() - t1:.3f} s")
     t1 = time.perf_counter()
-    counts = phase_main_path(dev_info)
-    log(f"main path phase: {time.perf_counter() - t1:.3f} s")
-    for label, phase in (("model stack", phase_model_stack),
-                         ("server", lambda: phase_server(dev_info))):
-        t1 = time.perf_counter()
-        for name, n in phase().items():
-            counts[name] += n
-        log(f"{label} phase: {time.perf_counter() - t1:.3f} s")
+    fa_entry["train_shape_forward_backward"] = phase_attention_backward(dev_info)
+    log(f"training phase (c), attention backward: {time.perf_counter() - t1:.3f} s")
+    main_path("main path", lambda: phase_main_path(dev_info))
+    main_path("model stack", phase_model_stack)
+    main_path("server", lambda: phase_server(dev_info))
+    main_path("training", lambda: phase_training(dev_info))
     log(f"launches over all main paths: {counts}")
     for name, n in counts.items():
         if n <= 0:

@@ -24,6 +24,25 @@ float32   ``csrc/flash_attention.cu``      rtol 1e-4, atol 2e-5: the
 The wrapper takes a kernel for CUDA tensors and the plain version of
 ``ref.py`` for CPU tensors. A CUDA input that its route's kernel cannot take
 raises, and a failed build or launch raises: there is no other path.
+
+Every call goes through :class:`FlashAttentionFn`, so the output carries a
+``grad_fn`` whenever grad is enabled and an input requires it (the kernel
+writes a fresh tensor that autograd would otherwise not know). Its backward:
+
+========  ===============================  =====================================
+backward  ``ref.flash_attention_backward``  dq, dk, dv in float32 from the saved
+(any      (plain PyTorch, chunked over     q, k, v and the output's gradient,
+dtype)    keys; both devices)              cast to the inputs' dtypes
+========  ===============================  =====================================
+
+The backward is plain PyTorch by design, not a fallback: the reference has no
+backward kernel (its ``loss_fn`` differentiates plain ``chunked_attention``
+through XLA autodiff and never reaches its Pallas kernel), so the port's
+counterpart is the exact gradient of the same function. It recomputes the
+softmax statistics key chunk by key chunk, each with only the query rows
+that see it, so it never holds more than a (B, H, Sq, chunk) block of
+scores. A hand-written backward kernel is a later, measured choice
+(ROADMAP B5).
 """
 
 from __future__ import annotations
@@ -36,7 +55,7 @@ from . import ref
 from ._build import load_library
 from .dequant_matmul import _on_cpu
 
-__all__ = ["HEAD_DIMS", "ROUTES", "flash_attention", "launches"]
+__all__ = ["HEAD_DIMS", "ROUTES", "FlashAttentionFn", "flash_attention", "launches"]
 
 #: The library each dtype launches; the only dispatch there is.
 ROUTES = {torch.bfloat16: "flash_attention_sm90", torch.float32: "flash_attention"}
@@ -89,10 +108,40 @@ def flash_attention(q, k, v, *, causal=True, window=0, sk_true=None):
     or bfloat16, one dtype, dh in ``HEAD_DIMS``, last dimension contiguous;
     bfloat16 also 16-byte aligned, see :func:`_check_tma`) launch the
     kernel of their dtype's route (:data:`ROUTES`); CPU tensors take
-    :func:`ref.flash_attention`.
+    :func:`ref.flash_attention`. Differentiable through
+    :class:`FlashAttentionFn` on both devices.
     """
-    if _on_cpu(q, k, v):
-        return ref.flash_attention(q, k, v, causal=causal, window=window, sk_true=sk_true)
+    return FlashAttentionFn.apply(q, k, v, bool(causal), int(window),
+                                  None if sk_true is None else int(sk_true))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` as an autograd function: the forward is the
+    kernel launch (CUDA) or the plain version (CPU), the backward
+    :func:`ref.flash_attention_backward` from the saved q, k, v on both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, sk_true):
+        if _on_cpu(q, k, v):
+            o = ref.flash_attention(q, k, v, causal=causal, window=window, sk_true=sk_true)
+        else:
+            o = _launch(q, k, v, causal, window, sk_true)
+        ctx.save_for_backward(q, k, v)
+        ctx.masks = (causal, window, sk_true)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        causal, window, sk_true = ctx.masks
+        dq, dk, dv = ref.flash_attention_backward(q, k, v, do, causal=causal, window=window,
+                                                  sk_true=sk_true, chunk=ref.BACKWARD_CHUNK)
+        return dq, dk, dv, None, None, None
+
+
+def _launch(q, k, v, causal: bool, window: int, sk_true) -> torch.Tensor:
+    """One kernel launch on CUDA tensors into a fresh output; counted in
+    :data:`launches`."""
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if k.shape != (b, sk, kv, dh) or v.shape != k.shape or kv == 0 or h % kv:

@@ -195,7 +195,7 @@ def dequant_matmul_auto(x, base, base_scale, base_zp, delta, delta_scale,
 
 def flash_attention(q, k, v, *, causal=True, window=0, sk_true=None, block_q=128,
                     block_k=128):
-    """Flash attention forward (grouped GQA): the seam the model stack calls.
+    """Flash attention (grouped GQA): the seam the model stack calls.
 
     q (B, Sq, H, dh); k, v (B, Sk, KV, dh) → (B, Sq, H, dh); keys at or past
     ``sk_true`` (default Sk) are masked. On CUDA tensors the kernel runs and

@@ -1,6 +1,8 @@
-"""Where the time of a prefill and of a serve step goes: a profiler trace.
+"""Where the time of a prefill, a serve step or a train step goes: a trace.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_steps [--trace PATH.json.gz]
+    PYTHONPATH=src python -m repro_torch.launch.profile_steps --train
+    PYTHONPATH=src python -m repro_torch.launch.profile_steps --window-probe 60
 
 Builds internlm2-1.8b as published (24 layers, bfloat16, random weights
 from a seed), the model of ``chip_smoke.py``'s phase 6, then runs one
@@ -13,6 +15,17 @@ busy share of the plain and of the profiled wall time, the kernels and the
 top-level host ops issued, the median gap between one kernel's end and the
 next one's start, and the kernels that take the most device time. The last
 line of the output is one JSON object with those numbers.
+
+``--train`` traces one ``make_train_step`` of the same model instead (4 x
+2048 ``SyntheticLM`` tokens, one microbatch, remat as the config has it,
+AdamW): the device's busy share, kernels a step and the top kernels, with
+the ``flash_attn`` kernels' share of the busy time
+(:func:`trace_train_step`, which ``chip_smoke.py`` also calls).
+
+``--window-probe SECONDS`` counts how often a short trace of the kind
+``kernel_ms`` takes holds no kernel with an unpadded window, and whether
+the padded window (:func:`_active_kernels`) then holds every kernel
+(:func:`window_probe`).
 
 ``--smoke --device cpu`` runs the same windows on the CPU at the config's
 SMOKE size and a few tokens, as a rehearsal of the script; device shares
@@ -47,9 +60,12 @@ from ..kernels import ops
 from ..models import init_cache, init_params
 from .steps import make_prefill_step, make_serve_step
 
-__all__ = ["kernel_ms", "main", "summarize", "trace_compressed_decode"]
+__all__ = ["kernel_ms", "main", "summarize", "trace_compressed_decode", "trace_train_step",
+           "window_probe"]
 
 ARCH, SEED = "internlm2-1.8b", 0
+# Idle host seconds on each side of a kernel_ms trace's runs (_active_kernels).
+WINDOW_PAD_S = 0.05
 # (batch, prefill length, prompt length, serve steps): published, and --smoke.
 SIZES = {False: (4, 2048, 8, 16), True: (2, 16, 3, 2)}
 # --compressed: internlm2-1.8b's decode widths at 2 layers (chip_smoke.py's
@@ -127,19 +143,33 @@ def _kernels(prof) -> list[tuple[float, float, str]]:
                   if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"))
 
 
-def _active_kernels(body, warmup: int, reps: int) -> list[tuple[float, float, str]]:
+def _active_kernels(body, warmup: int, reps: int,
+                    pad: float = WINDOW_PAD_S) -> list[tuple[float, float, str]]:
     """Kernels of ``reps`` runs of ``body`` traced in the active step of a
     schedule whose warm-up step (``warmup`` runs, discarded) absorbs the
     tracer's start: a trace started and stopped around a short run can
-    miss every kernel."""
+    miss every kernel.
+
+    The active step also holds ``pad`` seconds of idle host time before
+    and after the runs. The trace keeps only the card's activity whose
+    timestamps, converted to the host's clock, fall inside the step's
+    window, and that conversion wanders: on an H100 machine a window as
+    short as the runs has come back without a kernel though the host
+    logged every launch (``window_probe`` counts how often, unpadded and
+    padded)."""
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts, acc_events=True,
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for rounds in (warmup, reps):
-            for _ in range(rounds):
-                body()
-            torch.cuda.synchronize()
-            prof.step()
+        for _ in range(warmup):
+            body()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(pad)
+        for _ in range(reps):
+            body()
+        torch.cuda.synchronize()
+        time.sleep(pad)
+        prof.step()
     return _kernels(prof)
 
 
@@ -173,6 +203,30 @@ def kernel_ms(fn, reps: int, flush, match: str | None = None, warmup: int = 5,
     names = Counter(name[:60] for _, name in mine)
     raise RuntimeError(f"the trace holds {rounds} of {reps} flushes and {len(mine)} kernels "
                        f"of the timed call: {dict(names)}")
+
+
+def window_probe(seconds: float) -> dict:
+    """Short traces in a loop for ``seconds``: 5 discarded and 10 traced
+    rounds of (an L2 flush, one small kernel), each with an unpadded
+    window and, when that holds no kernel, again padded (``WINDOW_PAD_S``
+    a side). Counts the traces, the unpadded ones that held no kernel and
+    the padded retries that held all 20. Needs a CUDA card."""
+    x = torch.zeros(1 << 20, device="cuda")
+    flush = torch.zeros(64 << 20, device="cuda")
+
+    def body():
+        flush.add_(1.0)
+        x.mul_(1.0001)
+
+    n = empty = padded_kept_all = 0
+    end = time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        n += 1
+        if not _active_kernels(body, 5, 10, pad=0.0):
+            empty += 1
+            padded_kept_all += len(_active_kernels(body, 5, 10)) == 20
+    return {"traces": n, "unpadded_empty": empty, "padded_retries_kept_all": padded_kept_all,
+            "pad_s": WINDOW_PAD_S}
 
 
 def _profiled(fn, reps: int, dev: torch.device) -> tuple[object, float]:
@@ -216,6 +270,43 @@ def trace_compressed_decode(provider, spec, prompt, steps: int,
     prof, wall = _profiled(lambda: greedy_decode(provider, spec, prompt, steps), 1, dev)
     return _window(summarize(prof, wall, n_steps, match="dq_matmul"), plain_ms,
                    batch=prompt.shape[0], steps=n_steps)
+
+
+def trace_train_step(step_fn, params, opt, batch, plain_ms: float | None = None) -> dict:
+    """One ``step_fn(params, opt, batch)`` traced (its outputs dropped):
+    :func:`summarize` of the step with the ``flash_attn`` kernels' share
+    of the busy time. ``plain_ms`` is the step's unprofiled ms; without it
+    one untraced step is timed first."""
+    dev = next(iter(batch.values())).device
+
+    def run():
+        out = step_fn(params, opt, batch)
+        float(out[2]["loss"])  # the host waits for the step, as a trainer does
+
+    if plain_ms is None:
+        run()
+        _sync(dev)
+        t0 = time.perf_counter()
+        run()
+        _sync(dev)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall = _profiled(run, 1, dev)
+    size, length = batch["tokens"].shape
+    return _window(summarize(prof, wall, 1, match="flash_attn"), plain_ms,
+                   batch=size, len=length)
+
+
+def _train(cfg, smoke: bool, dev: torch.device) -> dict:
+    from ..data import SyntheticLM
+    from ..optim import adamw_init
+    from .steps import make_train_step
+
+    batch, length = SIZES[smoke][:2]
+    params = init_params(cfg, SEED, device=dev)
+    opt = adamw_init(params)
+    data = SyntheticLM(cfg.vocab_size, seed=SEED)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0, batch, length).items()}
+    return {"train": trace_train_step(make_train_step(cfg), params, opt, b)}
 
 
 def _compressed(smoke: bool, dev: torch.device) -> dict:
@@ -271,7 +362,14 @@ def main(argv=None) -> dict:
     p.add_argument("--trace", default=None, help="write the serve window's Chrome trace here")
     p.add_argument("--compressed", action="store_true",
                    help="trace the compressed decode step at bits 8 and 4 instead")
+    p.add_argument("--train", action="store_true", help="trace one train step instead")
+    p.add_argument("--window-probe", type=float, default=None, metavar="SECONDS",
+                   help="count short traces that hold no kernel, unpadded and padded")
     args = p.parse_args(argv)
+    if args.window_probe is not None:
+        out = {"device": torch.cuda.get_device_name(), **window_probe(args.window_probe)}
+        print(json.dumps(out), flush=True)
+        return out
     batch, prefill_len, prompt_len, steps = SIZES[args.smoke]
 
     dev = ops.resolve_device(args.device)
@@ -281,6 +379,12 @@ def main(argv=None) -> dict:
         _report(out, ("compressed_bits8", "compressed_bits4"))
         return out
     cfg = get_config(ARCH, smoke=args.smoke)
+    if args.train:
+        out = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.param_dtype,
+               "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+               **_train(cfg, args.smoke, dev)}
+        _report(out, ("train",))
+        return out
     params = init_params(cfg, SEED, device=dev)
     rng = np.random.default_rng(SEED + 1)
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.param_dtype,

@@ -1,11 +1,13 @@
-"""Prefill, serve and evaluation steps over the model stack.
+"""Train, prefill, serve and evaluation steps over the model stack.
 
-The port of the reference's ``repro/launch/steps.py`` (its serving half):
-``make_prefill_step`` is a full forward returning last-position logits,
-``make_serve_step`` one greedy decode token against the cache and
-``make_eval_step`` the loss. ``jax.jit`` has no counterpart: each step runs
-eagerly under ``torch.inference_mode()``. ``make_train_step`` and
-``pick_microbatches`` wait for the training slice (ROADMAP queue A8).
+The port of the reference's ``repro/launch/steps.py``: ``make_train_step``
+is the microbatched step (gradient sums over microbatches, the
+remat-per-period forward, AdamW), ``make_prefill_step`` a full forward
+returning last-position logits, ``make_serve_step`` one greedy decode token
+against the cache and ``make_eval_step`` the loss. ``jax.jit`` and
+``lax.scan`` have no counterpart: each step runs eagerly, the microbatches
+in a Python loop, and the prefill, serve and eval steps under
+``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -14,8 +16,71 @@ import torch
 
 from ..models import decode_step, forward, loss_fn
 from ..models.config import ModelConfig
+from ..optim import adamw_update
+from ..tree import tree_leaves, tree_map
 
-__all__ = ["make_eval_step", "make_prefill_step", "make_serve_step"]
+__all__ = ["make_eval_step", "make_prefill_step", "make_serve_step", "make_train_step",
+           "pick_microbatches"]
+
+
+def pick_microbatches(cfg: ModelConfig, global_batch: int) -> int:
+    """Microbatch count heuristic: keep per-microbatch tokens ≲ 128k for
+    big-d models (activation + logits memory), ≲ 256k otherwise."""
+    micro = 16 if cfg.d_model > 4096 or cfg.n_experts >= 64 else 32
+    micro = min(micro, global_batch)
+    while global_batch % micro:
+        micro //= 2
+    return max(global_batch // micro, 1)
+
+
+def make_train_step(cfg: ModelConfig, n_microbatches: int = 1, *,
+                    lr: float = 1e-4, grad_dtype=None):
+    """Returns train_step(params, opt_state, batch) → (params, opt, metrics).
+
+    The batch is split on dim 0 into ``n_microbatches`` equal parts; each
+    part's loss is differentiated with respect to every parameter, the
+    gradients summed in ``grad_dtype`` (float32 by default) and divided by
+    the count, and ``metrics["loss"]`` is the mean of the parts' losses.
+    With one microbatch the gradients stay in the parameters' dtypes, as in
+    the reference. Then one ``adamw_update``; the inputs are left as they
+    were.
+    """
+    acc_dtype = grad_dtype or torch.float32
+
+    def value_and_grad(params, batch):
+        # Differentiable views of the parameters (storage shared, no copy).
+        diff = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss = loss_fn(diff, batch, cfg)[0]
+            leaves = tree_leaves(diff)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        it = iter(grads)
+        return loss.detach(), tree_map(lambda _: next(it), params)
+
+    def train_step(params, opt_state, batch):
+        if n_microbatches == 1:
+            loss, grads = value_and_grad(params, batch)
+            params, opt_state = adamw_update(params, grads, opt_state, lr=lr)
+            return params, opt_state, {"loss": loss}
+        size = next(iter(batch.values())).shape[0]
+        if size % n_microbatches:
+            raise ValueError(f"a batch of {size} does not split into {n_microbatches} "
+                             "equal microbatches")
+        parts = {k: v.reshape((n_microbatches, size // n_microbatches) + v.shape[1:])
+                 for k, v in batch.items()}
+        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype, device=p.device),
+                        params)
+        lsum = 0.0
+        for i in range(n_microbatches):
+            loss, grads = value_and_grad(params, {k: v[i] for k, v in parts.items()})
+            gsum = tree_map(lambda a, g: a + g.to(acc_dtype), gsum, grads)
+            lsum = lsum + loss
+        grads = tree_map(lambda g: g / n_microbatches, gsum)
+        params, opt_state = adamw_update(params, grads, opt_state, lr=lr)
+        return params, opt_state, {"loss": lsum / n_microbatches}
+
+    return train_step
 
 
 def make_eval_step(cfg: ModelConfig):

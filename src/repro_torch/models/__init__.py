@@ -11,6 +11,7 @@ from .transformer import (
     init_cache,
     init_params,
     loss_fn,
+    opt_from_reference,
     params_from_reference,
 )
 
@@ -23,5 +24,6 @@ __all__ = [
     "init_cache",
     "init_params",
     "loss_fn",
+    "opt_from_reference",
     "params_from_reference",
 ]

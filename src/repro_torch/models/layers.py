@@ -8,10 +8,12 @@ tensors with the reference's names and shapes (``wq`` (d_model, H, dh),
 format of both packages.
 
 On the card, :func:`chunked_attention` is the hand-written CUDA kernel
-(``kernels/flash_attention.py``, through ``ops.flash_attention``); on the
-CPU it is a plain port of the reference's chunked scan. The reference's
-sharding constraints have no counterpart here: the port runs on one
-device. ``MoE`` is not ported yet (ROADMAP queue A7).
+(``kernels/flash_attention.py``, through ``ops.flash_attention``), whose
+autograd function gives its gradient; on the CPU it is a plain port of the
+reference's chunked scan, which autograd differentiates as XLA does the
+reference's. The reference's sharding constraints have no counterpart
+here: the port runs on one device. ``MoE`` is not ported yet (ROADMAP
+queue A5).
 """
 
 from __future__ import annotations
@@ -66,7 +68,8 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
 
     On CUDA tensors this is the flash-attention kernel, which tiles for
     itself (``chunk`` is unused) and has no query offset (``q_offset != 0``
-    raises; ``forward`` never passes one). On CPU tensors it is the
+    raises; ``forward`` never passes one); its backward is
+    ``kernels.flash_attention.FlashAttentionFn``'s. On CPU tensors it is the
     reference's scan over KV chunks with running (m, l, acc); ``Sk`` must
     be a multiple of the chunk. ``window > 0`` restricts to a causal local
     window.

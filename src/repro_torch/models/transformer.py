@@ -9,8 +9,10 @@ stacked over a leading period axis, exactly as in the reference's tree:
 
 so a parameter tree of either package saves to the same checkpoint names
 (``CheckpointManager``) and :func:`params_from_reference` carries the
-reference's parameters across leaf by leaf. Where the reference scans over
-periods, the port loops over them in Python.
+reference's parameters across leaf by leaf (:func:`opt_from_reference` its
+AdamW state). Where the reference scans over periods, the port loops over
+them in Python; where it wraps a period in ``jax.checkpoint``
+(``cfg.remat``), the port wraps it in ``torch.utils.checkpoint``.
 
 Block = sequence mix (attn / local_attn) + channel mix (swiglu / gelu), each
 pre-RMSNormed with a residual add. The recurrent blocks (rglru, rwkv6) and
@@ -24,6 +26,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import resolve_device
 from .config import ModelConfig
@@ -32,7 +35,7 @@ from .layers import AttentionBlock, GeluMLP, SwiGLU, _normal, rms_norm
 Params = dict[str, Any]
 
 __all__ = ["decode_step", "forward", "init_cache", "init_params", "loss_fn",
-           "params_from_reference"]
+           "opt_from_reference", "params_from_reference"]
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -56,7 +59,7 @@ def _seq_block(cfg: ModelConfig, kind: str):
     if kind in ("rglru", "rwkv6"):
         raise NotImplementedError(
             f"{cfg.name}: sequence block {kind!r} (models/recurrent.py) is not "
-            "ported yet: ROADMAP queue A7, the recurrent blocks")
+            "ported yet: ROADMAP queue A4, the recurrent blocks")
     raise ValueError(kind)
 
 
@@ -68,11 +71,11 @@ def _mix_block(cfg: ModelConfig, kind: str):
     if kind in ("moe", "moe_dense"):
         raise NotImplementedError(
             f"{cfg.name}: channel mix {kind!r} (models/layers.py MoE) is not "
-            "ported yet: ROADMAP queue A7, MoE")
+            "ported yet: ROADMAP queue A5, MoE")
     if kind == "rwkv_cm":
         raise NotImplementedError(
             f"{cfg.name}: channel mix 'rwkv_cm' (models/recurrent.py) is not "
-            "ported yet: ROADMAP queue A7, the recurrent blocks")
+            "ported yet: ROADMAP queue A4, the recurrent blocks")
     raise ValueError(kind)
 
 
@@ -160,6 +163,17 @@ def params_from_reference(tree, device="cuda"):
     return walk(tree)
 
 
+def opt_from_reference(state, device="cuda"):
+    """The reference's AdamW state (``repro.optim.adamw_init`` /
+    ``adamw_update``: float32 ``m`` and ``v`` trees and an int32 scalar
+    ``step``, as numpy arrays) as the port's on ``device``, for
+    ``optim.adamw_update``."""
+    return {"m": params_from_reference(state["m"], device),
+            "v": params_from_reference(state["v"], device),
+            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                                 device=resolve_device(device))}
+
+
 # --------------------------------------------------------- forward (sequence)
 def _apply_layer(cfg, seq_blk, mix_blk, p, x, positions):
     """Pre-LN residual block."""
@@ -182,15 +196,30 @@ def _head(cfg, params):
 
 
 def forward(params: Params, batch: dict, cfg: ModelConfig):
-    """Full-sequence forward → logits (B, S, V)."""
+    """Full-sequence forward → logits (B, S, V).
+
+    With ``cfg.remat`` and grad enabled, each period runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward, so the backward runs each period's forward,
+    attention launches included, a second time.
+    """
     x = _embed_in(cfg, params, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     period_blocks = _blocks_for_period(cfg)
-    for i in range(cfg.n_periods):
-        p_period = _index(params["periods"], i)
+
+    def period_fn(x, p_period):
         for j, (sb, mb) in enumerate(period_blocks):
             x = _apply_layer(cfg, sb, mb, p_period[f"slot{j}"], x, positions)
+        return x
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.n_periods):
+        p_period = _index(params["periods"], i)
+        if remat:
+            x = checkpoint(period_fn, x, p_period, use_reentrant=False)
+        else:
+            x = period_fn(x, p_period)
     for i, (sb, mb) in enumerate(_blocks_for_tail(cfg)):
         x = _apply_layer(cfg, sb, mb, params["tail"][i], x, positions)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -199,7 +228,8 @@ def forward(params: Params, batch: dict, cfg: ModelConfig):
 
 def loss_fn(params: Params, batch: dict, cfg: ModelConfig):
     """Mean next-token cross entropy (labels already shifted). Returns
-    (loss, metrics). Forward only: the port has no backward yet."""
+    (loss, metrics); differentiable, as the reference's (the row max is
+    held out of the gradient, as its ``stop_gradient``)."""
     logits = forward(params, batch, cfg).to(torch.float32)
     labels = batch["labels"].to(torch.int64)
     mask = batch.get("mask")

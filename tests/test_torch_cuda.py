@@ -19,7 +19,11 @@ routes (bfloat16 and split tf32, both on the tensor cores), every head dim,
 groups that do not divide the 128-row tile, strided inputs, key lengths
 short of Sk, rows that have no real key, the bfloat16 route's alignment
 rules, and for float32 rows that do not start on 16 bytes, a peaked
-softmax (q and k scaled x3) and the internlm2 prefill shape.
+softmax (q and k scaled x3) and the internlm2 prefill shape; for
+training, the attention's gradients through ``FlashAttentionFn`` on both
+routes against autograd of the plain version, the gradient to ``wq``
+through an attention block, microbatched train steps against the CPU and
+a ``Trainer`` that checkpoints and resumes on the card.
 """
 
 import dataclasses
@@ -502,3 +506,133 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+# ------------------------------------------------------------------ training
+def _plain_grads(q, k, v, do, **masks):
+    """Autograd of the plain version on the card: the yardstick of
+    ``FlashAttentionFn``'s backward."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o = ref.flash_attention(*leaves, **masks)
+    return torch.autograd.grad(o, leaves, do)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,window,sk_true", [
+    (2, 256, 256, 8, 4, 64, True, 0, None),
+    (1, 256, 256, 4, 1, 128, True, 64, None),   # MQA + window
+    (1, 200, 256, 8, 2, 64, False, 0, None),    # ragged Sq, bidirectional
+    (1, 130, 90, 6, 2, 32, False, 20, None),    # rows that see no key
+    (2, 96, 600, 4, 2, 80, False, 0, 531),      # keys past sk_true; a ragged last chunk
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_matches_autograd_of_plain(cuda, b, sq, sk, h, kv, dh, causal,
+                                                            window, sk_true, dtype):
+    """The kernel forward and the plain backward through FlashAttentionFn,
+    against autograd of ``ref.flash_attention``: float32 at the reference's
+    rtol 1e-4 (atol 1e-5 of the largest gradient), bfloat16 one rounding
+    step apart (rtol 1e-2). Keys past ``sk_true`` get exactly 0."""
+    rng = np.random.default_rng(sq + sk + dh)
+    q, k, v, do = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(cuda, dtype)
+                   for shape in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh),
+                                 (b, sq, h, dh)))
+    masks = dict(causal=causal, window=window, sk_true=sk_true)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = ops.launch_counts()["flash_attention"]
+    o = fa.flash_attention(*leaves, **masks)
+    assert ops.launch_counts()["flash_attention"] == before + 1 and o.grad_fn is not None
+    got = torch.autograd.grad(o, leaves, do)
+    want = _plain_grads(q, k, v, do, **masks)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        _assert_close(g.float(), w.float(), rtol=1e-4 if dtype == torch.float32 else 1e-2)
+    if sk_true is not None:
+        assert not got[1][:, sk_true:].any() and not got[2][:, sk_true:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_gradient_reaches_wq_on_the_card(cuda, dtype):
+    """The fault the autograd function repairs: the kernel's output was a
+    fresh tensor, so wq, wk and wv got no gradient. Through an attention
+    block on the card every weight gets the gradient of the same block on
+    the plain attention."""
+    blk = layers.AttentionBlock(n_heads=8, n_kv_heads=4, d_head=32, rope_theta=10_000.0)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = blk.init(gen, 128, dtype, cuda)
+    x = torch.randn((2, 64, 128), generator=gen, device=cuda).to(dtype)
+    pos = torch.arange(64, device=cuda).expand(2, 64)
+
+    def grads(attention):
+        leaves = {k: t.clone().requires_grad_(True) for k, t in p.items()}
+        orig = ops.flash_attention
+        ops.flash_attention = attention
+        try:
+            out = blk.forward(leaves, x, pos)
+        finally:
+            ops.flash_attention = orig
+        out.float().square().sum().backward()
+        return {k: t.grad for k, t in leaves.items()}
+
+    got, want = grads(ops.flash_attention), grads(ref.flash_attention)
+    for name in ("wq", "wk", "wv", "wo"):
+        assert got[name] is not None, f"no gradient reached {name}"
+        if dtype == torch.float32:
+            _assert_close(got[name], want[name])
+        else:
+            # bfloat16: the kernel's output is one rounding from the plain
+            # one (2^-8 relative), which the loss's gradient carries back,
+            # and each gradient is rounded again: held in relative L2.
+            err = (got[name].double() - want[name].double()).norm() / want[name].double().norm()
+            assert float(err) < 2e-2, (name, float(err))
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Two microbatched train steps of a float32 smoke model (head dim 32,
+    one the kernel is built for) on the card and on the CPU from the same
+    parameters: the losses within rtol 1e-4, the parameters after the
+    steps within rtol/atol 1e-4 of each other."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+
+    cfg = dataclasses.replace(get_config("internlm2-1.8b", smoke=True), d_head=32)
+    params = init_params(cfg, seed=0, device="cpu")
+    step = make_train_step(cfg, 2, lr=1e-3)
+    gparams = _to(params, cuda)
+    state = {"cpu": (params, adamw_init(params)), "cuda": (gparams, adamw_init(gparams))}
+    data = SyntheticLM(cfg.vocab_size, seed=1)
+    losses = {"cpu": [], "cuda": []}
+    before = ops.launch_counts()["flash_attention_float32"]
+    for i in range(2):
+        batch = {k: torch.from_numpy(v) for k, v in data.batch(i, 4, 64).items()}
+        for dev in ("cpu", "cuda"):
+            p, o, m = step(*state[dev], {k: t.to(dev) for k, t in batch.items()})
+            state[dev] = (p, o)
+            losses[dev].append(float(m["loss"]))
+    # remat: each layer's attention runs twice a microbatch (forward, recompute).
+    assert ops.launch_counts()["flash_attention_float32"] - before == 2 * 2 * 2 * cfg.n_layers
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    for name in ("embed", "lm_head"):
+        np.testing.assert_allclose(state["cuda"][0][name].cpu().numpy(),
+                                   state["cpu"][0][name].numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_trainer_on_the_card_resumes(cuda, tmp_path):
+    """The Trainer on the card: 3 steps with an async checkpoint at 2 and the
+    final one at 3, then a second Trainer resumes at step 3 with the same
+    parameters and moments (within the store's 2^-23)."""
+    from repro_torch.launch.train import Trainer
+
+    cfg = dataclasses.replace(get_config("internlm2-1.8b", smoke=True), d_head=32)
+    tr = Trainer(cfg, str(tmp_path), ckpt_every=2)
+    rep = tr.fit(steps=3, batch=2, seq=64)
+    assert not rep.resumed and all(np.isfinite(rep.losses))
+    tr2 = Trainer(cfg, str(tmp_path), ckpt_every=2)
+    step, params, opt, resumed = tr2._init_or_resume()
+    assert resumed and step == 3 and int(opt["step"]) == 3
+    for got, want in ((params["embed"], tr._params["embed"]),
+                      (opt["m"]["embed"], tr._opt["m"]["embed"]),
+                      (opt["v"]["lm_head"], tr._opt["v"]["lm_head"])):
+        assert got.device.type == "cuda"
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0, atol=2 ** -23)
+    rep2 = tr2.fit(steps=1, batch=2, seq=64)
+    assert (rep2.resumed, rep2.start_step, rep2.end_step) == (True, 3, 4)

@@ -3,7 +3,8 @@
 A fresh interpreter imports every ``repro_torch`` module, runs the CPU
 slices end to end (save, dedup, load at bits 8 and 4, decode on compressed
 weights; a dense model's prefill, a checkpoint and ``ModelServer.generate``
-from it) and then checks ``sys.modules``. The same holds for
+from it; a ``Trainer`` that checkpoints and resumes) and then checks
+``sys.modules``. The same holds for
 ``chip_smoke.py``, whose source is checked for imports.
 """
 
@@ -58,6 +59,14 @@ with tempfile.TemporaryDirectory() as root:
     toks, stats = srv.generate(srv.load(), np.array([[1, 2, 3]]), max_new_tokens=4)
     assert toks.shape == (1, 4) and stats["tokens_per_s"] > 0
     srv.mgr.close()
+
+from repro_torch.launch.train import Trainer
+
+with tempfile.TemporaryDirectory() as root:
+    rep = Trainer(cfg, root, ckpt_every=1, device="cpu").fit(steps=2, batch=2, seq=32)
+    assert rep.end_step == 2 and all(np.isfinite(rep.losses))
+    rep = Trainer(cfg, root, device="cpu").fit(steps=1, batch=2, seq=32)
+    assert rep.resumed and rep.start_step == 2
 
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
