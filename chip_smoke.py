@@ -81,6 +81,22 @@ before 4, after which ``kernel_ms``'s traces have come back empty):
    ``RESTORE_ATOL``), then ``ModelServer`` generating from the last
    checkpoint: its parameters held to the trained ones (``RESTORE_ATOL``),
    its tokens and logits to the in-memory decode of the trained ones.
+9. The store service (run right after phase 4, on its engine and store):
+   ``ModelStoreServer`` with a tenant quota and the default admission
+   policy, driven through ``StoreClient``: an HTTP upload of a second
+   fine-tune (every tensor a delta, ``quantized_l2`` launched from the
+   handler thread, no rows uploaded to the mirrors), its download at
+   ``bits=None``, 8 and 4, each byte-identical to the engine's own load
+   (run beside it), a quota rejection, the stats, accounting and metrics
+   routes (the request counters equal the requests made), an upload of new
+   bases, its delete and an admin vacuum that compacts the card's index
+   mirrors (bytes uploaded for the clones and the card's peak memory
+   printed), then ``STORE_READERS`` concurrent readers of the fine-tune,
+   byte-identical, while a second such upload is saved and deleted and the
+   maintenance daemon (as ``python -m repro_torch.server`` runs it)
+   vacuums it, the mirrors held equal to their host arrays after each;
+   then ``python -m repro_torch.server`` on the same store in a
+   subprocess: its serving line, ``/v1/healthz``, and exit 0 on SIGINT.
 
 Each path's launch counts are set to 0 just before it and read just after;
 the run fails unless every kernel was launched on some path. The inputs
@@ -100,10 +116,15 @@ import dataclasses
 import json
 import os
 import re
+import select
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -126,6 +147,12 @@ F32_SPLIT = 3
 WIDTHS = dict(d_model=2048, n_heads=16, n_kv_heads=8, d_ff=8192, vocab_size=92544)
 N_LAYERS = 2
 BATCH, PROMPT_LEN, STEPS = 4, 8, 16
+# The store service phase: concurrent readers of one model (cut from 4:
+# each download of the 2-layer model is 20-40 s of host reconstruction on
+# the H100 machine), and the byte quota of tenant t1, below the page of
+# its one upload.
+STORE_READERS = 2
+QUOTA_T1 = 1 << 20
 MATMUL_SHAPES = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048), (2048, 92544)]
 # Matmul calls of each (K, N) in one decode step at N_LAYERS: q,o / k,v /
 # gate,up / down per layer, plus the LM head.
@@ -923,7 +950,8 @@ def _decode_checked(eng, spec, prompt, bits: int, bw: float) -> dict:
 def _uploads(what: str, before: dict, want_rows: int | None) -> None:
     """Log (and check) the code bytes the index mirrors uploaded since
     ``before``: rows entering an index must be ``want_rows`` bytes; a
-    whole-index upload (an index read from disk) gets its own line."""
+    whole-index upload (an index read from disk, or a vacuum's clone) gets
+    its own line."""
     from repro_torch.core.hnsw import mirror_uploads
 
     rows = mirror_uploads["rows"] - before["rows"]
@@ -931,7 +959,8 @@ def _uploads(what: str, before: dict, want_rows: int | None) -> None:
     log(f"{what}: code bytes uploaded to the card for rows entering an index {rows}"
         + ("" if want_rows is None else f" (want {want_rows})"))
     if index:
-        log(f"{what}: code bytes uploaded to the card for whole indexes read from disk {index}")
+        log(f"{what}: code bytes uploaded to the card for whole indexes (read from disk "
+            f"or cloned) {index}")
     if want_rows is not None and rows != want_rows:
         fail(f"{what}: {rows} code bytes uploaded for entering rows, want {want_rows}")
 
@@ -954,7 +983,10 @@ def _check_mirrors(eng) -> tuple[int, int, int]:
     return checked, used, held
 
 
-def phase_main_path(dev_info: dict) -> dict[str, int]:
+def phase_main_path(dev_info: dict, keep: dict) -> dict[str, int]:
+    """Phase 4. Leaves its engine open in ``keep`` (``eng``, ``spec``, the
+    store's ``tmp`` directory and the ``base`` tensors) for the store
+    service phase, which closes it."""
     from repro_torch.core import StorageEngine
     from repro_torch.core.hnsw import mirror_uploads
     from repro_torch.kernels import ops
@@ -977,47 +1009,374 @@ def phase_main_path(dev_info: dict) -> dict[str, int]:
     prompt = np.random.default_rng(SEED + 2).integers(0, spec.vocab_size, (BATCH, PROMPT_LEN))
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build, prefix="chip_smoke_store_") as root:
-        # The main path: every count starts at 0 here and is read at the end.
-        ops.reset_launch_counts()
-        eng = StorageEngine(root, device="cuda")
-        up = dict(mirror_uploads)
-        rep = eng.save_model("base", decoder_architecture(spec), base)
-        log(f"save base: {rep.seconds:.6f} s, {rep.n_new_bases} new bases, "
-            f"{rep.n_deltas} deltas, page {rep.page_bytes} bytes; "
-            f"quantized_l2 launches {ops.launch_counts()['quantized_l2']}")
-        _uploads("save base", up, sum(ex["dim"] for ex in rep.explain
-                                      if ex["outcome"] == "new_base"))
-        del base
-        before = ops.launch_counts()["quantized_l2"]
-        up = dict(mirror_uploads)
-        rep = eng.save_model("ft", decoder_architecture(spec), ft)
-        l2 = ops.launch_counts()["quantized_l2"] - before
-        outcomes = {ex["tensor"]: ex["outcome"] for ex in rep.explain}
-        log(f"save fine-tune: {rep.seconds:.6f} s, {rep.n_new_bases} new bases, "
-            f"{rep.n_deltas} deltas, page {rep.page_bytes} bytes, mean nbit "
-            f"{rep.mean_nbit:.3f}; quantized_l2 launches {l2}")
-        _uploads("save fine-tune", up, 0)
-        del ft
-        not_delta = {k: v for k, v in outcomes.items() if v != "delta"}
-        if not_delta or l2 <= 0:
-            fail(f"fine-tune save: non-delta outcomes {not_delta}, quantized_l2 launches {l2}")
-        up = dict(mirror_uploads)
-        rows, used, held = _check_mirrors(eng)
-        _uploads("mirror check", up, 0)
-        log(f"index mirrors equal their host arrays: {rows} rows over "
-            f"{len(eng.index_cache.dims())} indexes; the mirrors hold {held} code bytes on "
-            f"the card for {used} bytes of rows (capacity doubling, at least 8 rows)")
-        results = {bits: _decode_checked(eng, spec, prompt, bits, dev_info["bandwidth"])
-                   for bits in (8, 4)}
-        counts = ops.launch_counts()
-        eng.close()
+    tmp = tempfile.TemporaryDirectory(dir=build, prefix="chip_smoke_store_")
+    root = tmp.name
+    # The main path: every count starts at 0 here and is read at the end.
+    ops.reset_launch_counts()
+    eng = StorageEngine(root, device="cuda")
+    up = dict(mirror_uploads)
+    rep = eng.save_model("base", decoder_architecture(spec), base)
+    log(f"save base: {rep.seconds:.6f} s, {rep.n_new_bases} new bases, "
+        f"{rep.n_deltas} deltas, page {rep.page_bytes} bytes; "
+        f"quantized_l2 launches {ops.launch_counts()['quantized_l2']}")
+    _uploads("save base", up, sum(ex["dim"] for ex in rep.explain
+                                  if ex["outcome"] == "new_base"))
+    keep["base"] = base  # phase 9 fine-tunes it again
+    del base
+    before = ops.launch_counts()["quantized_l2"]
+    up = dict(mirror_uploads)
+    rep = eng.save_model("ft", decoder_architecture(spec), ft)
+    l2 = ops.launch_counts()["quantized_l2"] - before
+    outcomes = {ex["tensor"]: ex["outcome"] for ex in rep.explain}
+    log(f"save fine-tune: {rep.seconds:.6f} s, {rep.n_new_bases} new bases, "
+        f"{rep.n_deltas} deltas, page {rep.page_bytes} bytes, mean nbit "
+        f"{rep.mean_nbit:.3f}; quantized_l2 launches {l2}")
+    _uploads("save fine-tune", up, 0)
+    del ft
+    not_delta = {k: v for k, v in outcomes.items() if v != "delta"}
+    if not_delta or l2 <= 0:
+        fail(f"fine-tune save: non-delta outcomes {not_delta}, quantized_l2 launches {l2}")
+    up = dict(mirror_uploads)
+    rows, used, held = _check_mirrors(eng)
+    _uploads("mirror check", up, 0)
+    log(f"index mirrors equal their host arrays: {rows} rows over "
+        f"{len(eng.index_cache.dims())} indexes; the mirrors hold {held} code bytes on "
+        f"the card for {used} bytes of rows (capacity doubling, at least 8 rows)")
+    results = {bits: _decode_checked(eng, spec, prompt, bits, dev_info["bandwidth"])
+               for bits in (8, 4)}
+    counts = ops.launch_counts()
+    keep.update(eng=eng, spec=spec, tmp=tmp)
     log(f"main path launches: {counts}")
     for name in ("dequant_matmul", "dequant_matmul_int4", "quantized_l2"):
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
     first = results[8]["tokens"][:, :4].tolist()
     log(f"tokens bits=8, first 4 per prompt: {first}")
+    return counts
+
+
+def _same_bytes(got: np.ndarray, want: np.ndarray) -> bool:
+    """Byte-identical arrays: same dtype, same shape (as the wire frames it:
+    contiguous, 0-d as 1-d) and the same bytes."""
+    got, want = np.ascontiguousarray(got), np.ascontiguousarray(want)
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and np.array_equal(got.view(np.uint8), want.view(np.uint8)))
+
+
+def _check_download(what: str, got: dict, want_items) -> int:
+    """Hold a download against ``(name, array)`` pairs byte for byte, in
+    order; returns the tensor bytes compared."""
+    n = count = 0
+    names = list(got)
+    for count, (name, want) in enumerate(want_items, 1):
+        if count > len(names) or names[count - 1] != name or not _same_bytes(got[name], want):
+            fail(f"{what}: tensor {name!r} differs from the engine's own load")
+        n += want.nbytes
+    if count != len(names):
+        fail(f"{what}: {len(names)} tensors downloaded, the engine loads {count}")
+    return n
+
+
+def _garbage(eng) -> dict[int, int]:
+    """Vertices no catalog entry references, per index dim."""
+    out = {}
+    for dim in eng.index_cache.dims():
+        idx = eng.index_cache.get(dim)
+        live = sum(1 for c in eng.catalog.refs_for_dim(dim).values() if c > 0)
+        if len(idx) > live:
+            out[dim] = len(idx) - live
+    return out
+
+
+def _get(host: str, port: int, path: str) -> str:
+    with urllib.request.urlopen(f"http://{host}:{port}{path}", timeout=60) as resp:
+        return resp.read().decode("utf-8")
+
+
+def _serve_cli(store: str, want_models: list[str]) -> None:
+    """``python -m repro_torch.server`` on the card: start it on ``store``,
+    read its ``serving … on http://…`` line, check ``/v1/healthz`` and the
+    listing, then SIGINT; it must exit 0."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.server", "--store", store, "--port", "0"],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            ready, _, _ = select.select([proc.stdout], [], [], 180)
+            line = proc.stdout.readline().strip() if ready else ""
+            m = re.fullmatch(r"serving (.+) on http://([0-9.]+):(\d+)", line)
+            if m is None or m.group(1) != store:
+                err.seek(0)
+                fail(f"python -m repro_torch.server: no serving line ({line!r}); "
+                     f"stderr: {err.read()[-2000:]}")
+            host, port = m.group(2), int(m.group(3))
+            up_s = time.perf_counter() - t0
+            health = json.loads(_get(host, port, "/v1/healthz"))
+            models = json.loads(_get(host, port, "/v1/tenants/t0/models"))["models"]
+            if not health["ok"] or not health["maintenance"]["running"] or models != want_models:
+                fail(f"python -m repro_torch.server: healthz {health}, t0 models {models}")
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=120)
+            if rc != 0:
+                err.seek(0)
+                fail(f"python -m repro_torch.server exited {rc}: {err.read()[-2000:]}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+    log(f"python -m repro_torch.server --store <phase 4's store>: serving after "
+        f"{up_s:.3f} s, healthz ok (maintenance running, read_only {health['read_only']}), "
+        f"t0 models {models}, exit 0 on SIGINT after {time.perf_counter() - t0:.3f} s")
+
+
+def _fetch(client, name: str, bits) -> dict:
+    """Start a download on a thread of its own; the returned box gets the
+    tensors (``got``) and the seconds (``secs``), or the ``error``."""
+    box: dict = {}
+
+    def run():
+        t = time.perf_counter()
+        try:
+            box["got"] = client.load(name, bits=bits).materialize()
+        except Exception as exc:  # re-raised by _joined on the main thread
+            box["error"] = exc
+        box["secs"] = time.perf_counter() - t
+
+    box["thread"] = threading.Thread(target=run, name=f"reader {name} bits={bits}")
+    box["thread"].start()
+    return box
+
+
+def _joined(what: str, box: dict) -> tuple[dict, float]:
+    box["thread"].join(900)
+    if box["thread"].is_alive() or "error" in box:
+        fail(f"{what}: the download did not finish: {box.get('error')!r}")
+    return box.pop("got"), box["secs"]
+
+
+def phase_store_service(keep: dict) -> dict[str, int]:
+    """Phase 9: the store's front door, ``ModelStoreServer`` driven through
+    ``StoreClient``, mounted on phase 4's engine and store (upload → dedup
+    on ``quantized_l2`` from a handler thread → download at every width →
+    quota → stats, accounting and metrics → delete → vacuum of the card's
+    index mirrors → concurrent readers beside the maintenance daemon's own
+    vacuum), then ``python -m repro_torch.server`` on the same store."""
+    from repro_torch.core.hnsw import mirror_uploads
+    from repro_torch.kernels import ops
+    from repro_torch.launch.compressed_serve import decoder_architecture
+    from repro_torch.obs.metrics import parse_prometheus_text
+    from repro_torch.server import AdmissionPolicy, ModelStoreServer, QuotaManager, StoreClient
+    from repro_torch.store import SaveRequest
+    from repro_torch.store.errors import QuotaExceededError
+
+    eng, spec, tmp = keep.pop("eng"), keep.pop("spec"), keep.pop("tmp")
+    arch = decoder_architecture(spec)
+    log(f"store service: ModelStoreServer on phase 4's engine and store (internlm2-1.8b "
+        f"widths, depth cut from 24 to {spec.n_layers} layers: the save path is host numpy); "
+        f"{STORE_READERS} concurrent readers (cut from 4 to bound the phase's time); each "
+        f"download runs beside the engine's own load of the same model, which it is held to")
+    t0 = time.perf_counter()
+    ft2 = _finetune(keep.pop("base"), np.random.default_rng(SEED + 3))
+    rng = np.random.default_rng(SEED + 4)
+    d, f = spec.d_model, spec.d_ff
+    kv = spec.n_kv_heads * (d // spec.n_heads)
+    # Fresh values at element counts the decoder's indexes hold (MLP, q/o,
+    # k/v): each enters an existing index as a new base.
+    scratch = {"scratch.mlp": rng.normal(0, 0.02, (d, f)).astype(np.float32),
+               "scratch.attn": rng.normal(0, 0.02, (d, d)).astype(np.float32)}
+    # Three q/o bases: over the daemon's default dead fraction (0.25) once deleted.
+    scratch2 = {f"scratch2.attn{i}": rng.normal(0, 0.02, (d, d)).astype(np.float32)
+                for i in range(3)}
+    over_quota = {"w": rng.normal(0, 0.02, (d, kv)).astype(np.float32)}
+    log(f"store service tensors made in {time.perf_counter() - t0:.3f} s; ft2 "
+        f"{sum(v.nbytes for v in ft2.values())} bytes in {len(ft2)} tensors")
+
+    ops.reset_launch_counts()
+    launched_in = set()  # (thread name, current device, queries' device) a launch
+    seam = ops.quantized_l2
+
+    def quantized_l2(queries, *rest):
+        launched_in.add((threading.current_thread().name, torch.cuda.current_device(),
+                         str(queries.device)))
+        return seam(queries, *rest)
+
+    ops.quantized_l2 = quantized_l2
+    quotas = QuotaManager(limits={"t1": QUOTA_T1})
+    server = ModelStoreServer(eng, port=0, quotas=quotas, admission=AdmissionPolicy()).start()
+
+    def connect(tenant: str = "t0"):
+        return StoreClient(server.host, server.port, tenant=tenant, timeout=900)
+
+    client = connect()
+    requests: Counter = Counter()  # (route, method, status class) sent
+
+    def write(route: str, method: str, call):
+        """A write that must succeed; returns its result and seconds."""
+        t = time.perf_counter()
+        out = call()
+        requests[route, method, "2xx"] += 1
+        return out, time.perf_counter() - t
+
+    try:
+        # (2) An HTTP upload of a second fine-tune: every tensor a delta.
+        pool = client.stats()
+        requests["stats", "GET", "2xx"] += 1
+        up = dict(mirror_uploads)
+        rep, wall = write("model.upload", "POST",
+                          lambda: client.save(SaveRequest("ft2", ft2, architecture=arch)))
+        ft2_bytes = sum(v.nbytes for v in ft2.values())
+        del ft2
+        l2 = ops.launch_counts()["quantized_l2"]
+        not_delta = {ex["tensor"]: ex["outcome"] for ex in rep.explain
+                     if ex["outcome"] != "delta"}
+        log(f"upload t0/ft2: client wall {wall:.6f} s, SaveReport.seconds {rep.seconds:.6f} s "
+            f"(wire and HTTP {wall - rep.seconds:.6f} s, {ft2_bytes / wall / 1e6:.3f} MB/s of "
+            f"tensors end to end), {rep.n_deltas} deltas of {rep.n_tensors}, page "
+            f"{rep.page_bytes} bytes, mean nbit {rep.mean_nbit:.3f}; quantized_l2 launches "
+            f"{l2} from {sorted(launched_in)}; the pool at {pool.pool_utilization:.3f} of "
+            f"its budget before")
+        _uploads("upload t0/ft2", up, 0)
+        if not_delta or l2 <= 0 or rep.n_deltas != rep.n_tensors:
+            fail(f"upload t0/ft2: non-delta outcomes {not_delta}, quantized_l2 launches {l2}")
+        if not launched_in or any(t == "MainThread" or dev != "cuda:0"
+                                  for t, _, dev in launched_in):
+            fail(f"upload t0/ft2: quantized_l2 launched from {sorted(launched_in)}, "
+                 "want handler threads and the card")
+        rows = _check_mirrors(eng)[0]
+        log(f"index mirrors equal their host arrays after the upload: {rows} rows")
+
+        # (3) Downloads at every width, byte-identical to the engine's own
+        # load, which runs on this thread meanwhile.
+        keep8 = None
+        for bits in (None, 8, 4):
+            box = _fetch(client, "ft2", bits)
+            t = time.perf_counter()
+            lm = eng.load_model("t0/ft2", bits=bits)
+            try:
+                want = list(lm.iter_tensors())
+            finally:
+                lm.close()
+            own = time.perf_counter() - t
+            got, secs = _joined(f"download bits={bits}", box)
+            requests["model.download", "GET", "2xx"] += 1
+            n = _check_download(f"download bits={bits}", got, want)
+            log(f"download t0/ft2 bits={bits}: {secs:.6f} s, {n / secs / 1e6:.3f} MB/s of "
+                f"float32 tensors ({n} bytes), byte-identical to eng.load_model (its own "
+                f"load beside it {own:.6f} s)")
+            if bits == 8:
+                keep8 = got
+            del got, want
+
+        # (4) A quota rejection, then stats, accounting and the metrics scrape.
+        t1 = connect("t1")
+        try:
+            t1.save(SaveRequest("big", over_quota))
+            fail("tenant t1: an upload over its quota was accepted")
+        except QuotaExceededError as exc:
+            requests["model.upload", "POST", "4xx"] += 1
+            log(f"tenant t1 (quota {QUOTA_T1} bytes): upload rejected, {exc}")
+        t1.close()
+        stats = client.stats()
+        requests["stats", "GET", "2xx"] += 1
+        acct = client.accounting()
+        requests["accounting", "GET", "2xx"] += 1
+        scraped = parse_prometheus_text(_get(server.host, server.port, "/v1/metrics"))
+        served = {(s["labels"]["route"], s["labels"]["method"], s["labels"]["status"]): s["value"]
+                  for s in scraped["neurstore_server_requests_total"]["samples"]}
+        want = {k: float(v) for k, v in requests.items()}
+        if served != want:
+            fail(f"neurstore_server_requests_total {served}, requests made {want}")
+        if "neurstore_server_admission_rejects_total" not in scraped or \
+                stats.models != 3 or "t0" not in acct["per_tenant"]:
+            fail(f"stats/accounting/metrics: models {stats.models}, per_tenant "
+                 f"{sorted(acct['per_tenant'])}, families {sorted(scraped)}")
+        log(f"stats: {stats.models} models, epoch {stats.epoch}, pool "
+            f"{stats.pool_resident_bytes}/{stats.pool_budget_bytes} bytes, logical "
+            f"{stats.logical_bytes} physical {stats.physical_bytes} bytes (ratio "
+            f"{stats.compression_ratio:.6f}); {len(scraped)} metric families; "
+            f"neurstore_server_requests_total equals the {sum(requests.values())} requests made")
+
+        # (5) Upload new bases, delete them, vacuum the card's index mirrors.
+        up = dict(mirror_uploads)
+        rep, wall = write("model.upload", "POST",
+                          lambda: client.save(SaveRequest("scratch", scratch)))
+        entered = sum(v.size for v in scratch.values())
+        log(f"upload t0/scratch: client wall {wall:.6f} s, {rep.n_new_bases} new bases")
+        _uploads("upload t0/scratch", up, entered)
+        write("model.delete", "DELETE", lambda: client.delete("scratch"))
+        garbage = _garbage(eng)
+        before = {dim: len(eng.index_cache.get(dim)) for dim in garbage}
+        up = dict(mirror_uploads)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        vac, secs = write("admin.vacuum", "POST", lambda: client.vacuum(0.0))
+        torch.cuda.synchronize()
+        peak, mem1 = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+        index_bytes = mirror_uploads["index"] - up["index"]
+        compacted = sorted(int(k) for k in vac["dims"])
+        want_bytes = sum(before[dim] * dim for dim in compacted)
+        log(f"vacuum: {secs:.6f} s, compacted dims {compacted} (unreferenced vertices "
+            f"{garbage}), {vac['vertices_dropped']} vertices dropped, "
+            f"{vac['pages_rewritten']} pages rewritten; index bytes uploaded to the card "
+            f"{index_bytes} (the clones, want {want_bytes}); card memory {mem0} bytes "
+            f"before, peak {peak} (+{peak - mem0}), {mem1} after")
+        _uploads("vacuum", up, 0)
+        if compacted != sorted(garbage) or index_bytes != want_bytes or _garbage(eng):
+            fail(f"vacuum: compacted {compacted}, unreferenced {garbage} before and "
+                 f"{_garbage(eng)} after, index bytes {index_bytes} want {want_bytes}")
+        rows = _check_mirrors(eng)[0]
+        log(f"index mirrors equal their host arrays after the vacuum: {rows} rows")
+
+        # (6) Concurrent readers of t0/ft2, started after the vacuum, while a
+        # second upload of new bases is saved and deleted and the
+        # maintenance daemon, as `python -m repro_torch.server` runs it,
+        # vacuums it on its own thread.
+        readers = [connect() for _ in range(STORE_READERS)]
+        boxes = [_fetch(r, "ft2", 8) for r in readers]
+        daemon = eng.start_maintenance()
+        write("model.upload", "POST", lambda: client.save(SaveRequest("scratch2", scratch2)))
+        write("model.delete", "DELETE", lambda: client.delete("scratch2"))
+        t = time.perf_counter()
+        while _garbage(eng):
+            if time.perf_counter() - t > 120 or daemon.errors:
+                fail(f"maintenance daemon: unreferenced {_garbage(eng)} after "
+                     f"{time.perf_counter() - t:.1f} s, {daemon.stats()}")
+            time.sleep(0.1)
+        took = time.perf_counter() - t
+        daemon.stop()
+        results = [_joined(f"concurrent download {i}", b) for i, b in enumerate(boxes)]
+        wall = max(secs for _, secs in results)  # they start together
+        requests["model.download", "GET", "2xx"] += STORE_READERS
+        for r in readers:
+            r.close()
+        rows = _check_mirrors(eng)[0]
+        log(f"maintenance daemon: vacuumed the deleted t0/scratch2's "
+            f"{daemon.vacuumed_vertices} vertices {took:.3f} s after the delete; "
+            f"{daemon.steps} steps, {daemon.pages_scrubbed} pages scrubbed, {daemon.errors} "
+            f"errors; index mirrors equal their host arrays: {rows} rows")
+        for i, (got, _) in enumerate(results):
+            _check_download(f"concurrent download {i}", got, keep8.items())
+        n = sum(v.nbytes for v in keep8.values())
+        log(f"{STORE_READERS} concurrent downloads of t0/ft2 bits=8 after the vacuum, beside "
+            f"the second upload and the daemon's vacuum: wall {wall:.6f} s "
+            f"({STORE_READERS * n / wall / 1e6:.3f} MB/s together), each "
+            + ", ".join(f"{secs:.3f}" for _, secs in results) + " s; all byte-identical")
+        del results, boxes, keep8
+    finally:
+        client.close()
+        server.stop()
+        ops.quantized_l2 = seam
+    counts = ops.launch_counts()
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    _serve_cli(tmp.name, ["ft2"])
+    tmp.cleanup()
     return counts
 
 
@@ -1785,7 +2144,9 @@ def main() -> int:
     t1 = time.perf_counter()
     fa_entry["train_shape_forward_backward"] = phase_attention_backward(dev_info)
     log(f"training phase (c), attention backward: {time.perf_counter() - t1:.3f} s")
-    main_path("main path", lambda: phase_main_path(dev_info))
+    store: dict = {}
+    main_path("main path", lambda: phase_main_path(dev_info, store))
+    main_path("store service", lambda: phase_store_service(store))
     main_path("model stack", phase_model_stack)
     main_path("server", lambda: phase_server(dev_info))
     main_path("training", lambda: phase_training(dev_info))

@@ -23,7 +23,10 @@ softmax (q and k scaled x3) and the internlm2 prefill shape; for
 training, the attention's gradients through ``FlashAttentionFn`` on both
 routes against autograd of the plain version, the gradient to ``wq``
 through an attention block, microbatched train steps against the CPU and
-a ``Trainer`` that checkpoints and resumes on the card.
+a ``Trainer`` that checkpoints and resumes on the card; for the store's
+front door, an HTTP upload whose probes launch ``quantized_l2`` from the
+server's handler thread, a delete and vacuum that compact a CUDA mirror,
+and concurrent downloads during a save.
 """
 
 import dataclasses
@@ -636,3 +639,146 @@ def test_trainer_on_the_card_resumes(cuda, tmp_path):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0, atol=2 ** -23)
     rep2 = tr2.fit(steps=1, batch=2, seq=64)
     assert (rep2.resumed, rep2.start_step, rep2.end_step) == (True, 3, 4)
+
+
+def _assert_engine_mirrors(eng):
+    for dim in eng.index_cache.dims():
+        _assert_mirror(eng.index_cache.get(dim))
+
+
+def _served_card_engine(root):
+    from repro_torch.server import ModelStoreServer, StoreClient
+
+    eng = StorageEngine(str(root), device="cuda")
+    server = ModelStoreServer(eng).start()
+    return eng, server, StoreClient(server.host, server.port, tenant="t0")
+
+
+def _toy_models(seed=0):
+    rng = np.random.default_rng(seed)
+    base = {"w": rng.normal(0, 0.2, (48, 64)).astype(np.float32),
+            "v": rng.normal(0, 0.2, (32, 64)).astype(np.float32),
+            "g": np.ones(64, np.float32)}
+    return base, {k: (x + rng.normal(0, 1e-3, x.shape)).astype(np.float32)
+                  for k, x in base.items()}
+
+
+def test_server_upload_launches_quantized_l2_from_a_handler_thread(cuda, tmp_path, monkeypatch):
+    """An HTTP upload on a CUDA engine probes on the card from the server's
+    handler thread; the mirrors stay equal to the host arrays and the
+    downloads equal the engine's own loads."""
+    import threading
+
+    from repro_torch.store import SaveRequest
+
+    seen = []
+    seam = ops.quantized_l2
+
+    def spy(queries, *rest):
+        seen.append((threading.current_thread() is threading.main_thread(), queries.device))
+        return seam(queries, *rest)
+
+    monkeypatch.setattr(ops, "quantized_l2", spy)
+    base, ft = _toy_models()
+    eng, server, client = _served_card_engine(tmp_path)
+    try:
+        client.save(SaveRequest("base", base))
+        before = (ops.launch_counts()["quantized_l2"], dict(mirror_uploads))
+        rep = client.save(SaveRequest("ft", ft))
+        assert {ex["outcome"] for ex in rep.explain} == {"delta"}
+        assert ops.launch_counts()["quantized_l2"] > before[0]
+        assert mirror_uploads["rows"] == before[1]["rows"]
+        assert seen and all(not main and dev.type == "cuda" for main, dev in seen)
+        _assert_engine_mirrors(eng)
+        for bits in (None, 8, 4):
+            got = client.load("ft", bits=bits).materialize()
+            want = eng.load_model("t0/ft", bits=bits).materialize()
+            assert {k: v.tobytes() for k, v in got.items()} == \
+                {k: v.tobytes() for k, v in want.items()}
+    finally:
+        client.close()
+        server.stop()
+        eng.close()
+
+
+def test_server_delete_and_vacuum_compact_a_cuda_mirror(cuda, tmp_path):
+    """Delete a model of new bases over HTTP and vacuum: the compacted
+    indexes are clones uploaded whole once, their mirrors equal the host
+    arrays, and the surviving model downloads unchanged."""
+    from repro_torch.store import SaveRequest
+
+    base, ft = _toy_models()
+    rng = np.random.default_rng(5)
+    scratch = {"a": rng.normal(0, 1, (48, 64)).astype(np.float32),
+               "b": rng.normal(0, 1, (32, 64)).astype(np.float32)}
+    eng, server, client = _served_card_engine(tmp_path)
+    try:
+        client.save(SaveRequest("base", base))
+        client.save(SaveRequest("ft", ft))
+        want = {k: v.tobytes() for k, v in client.load("ft", bits=8).materialize().items()}
+        rep = client.save(SaveRequest("scratch", scratch))
+        assert rep.n_new_bases == 2
+        client.delete("scratch")
+        rows = {d: len(eng.index_cache.get(d)) for d in (48 * 64, 32 * 64)}
+        before = dict(mirror_uploads)
+        vac = client.vacuum(0.0)
+        assert sorted(int(d) for d in vac["dims"]) == sorted(rows)
+        assert vac["vertices_dropped"] == 2
+        assert mirror_uploads["index"] - before["index"] == sum(n * d for d, n in rows.items())
+        for d, n in rows.items():
+            assert len(eng.index_cache.get(d)) == n - 1
+        _assert_engine_mirrors(eng)
+        got = {k: v.tobytes() for k, v in client.load("ft", bits=8).materialize().items()}
+        assert got == want
+    finally:
+        client.close()
+        server.stop()
+        eng.close()
+
+
+def test_concurrent_downloads_during_a_save_on_the_card(cuda, tmp_path):
+    """Readers download over HTTP while a writer's upload probes on the
+    card: every download is byte-identical and the save dedups."""
+    import threading
+
+    from repro_torch.server import StoreClient
+    from repro_torch.store import SaveRequest
+
+    base, ft = _toy_models()
+    rng = np.random.default_rng(9)
+    ft2 = {k: (x + rng.normal(0, 1e-3, x.shape)).astype(np.float32) for k, x in base.items()}
+    eng, server, client = _served_card_engine(tmp_path)
+    try:
+        client.save(SaveRequest("base", base))
+        client.save(SaveRequest("ft", ft))
+        want = {k: v.tobytes() for k, v in client.load("ft", bits=8).materialize().items()}
+        errors, got, stop = [], [], threading.Event()
+
+        def read():
+            reader = StoreClient(server.host, server.port, tenant="t0")
+            try:
+                while not stop.is_set():
+                    got.append({k: v.tobytes()
+                                for k, v in reader.load("ft", bits=8).materialize().items()})
+            except Exception as exc:  # surfaced below
+                errors.append(exc)
+            finally:
+                reader.close()
+
+        threads = [threading.Thread(target=read) for _ in range(3)]
+        for t in threads:
+            t.start()
+        try:
+            rep = client.save(SaveRequest("ft2", ft2))
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(60)
+        assert not any(t.is_alive() for t in threads) and not errors
+        assert got and all(g == want for g in got)
+        assert {ex["outcome"] for ex in rep.explain} == {"delta"}
+        _assert_engine_mirrors(eng)
+    finally:
+        client.close()
+        server.stop()
+        eng.close()

@@ -3,7 +3,9 @@
 A fresh interpreter imports every ``repro_torch`` module, runs the CPU
 slices end to end (save, dedup, load at bits 8 and 4, decode on compressed
 weights; a dense model's prefill, a checkpoint and ``ModelServer.generate``
-from it; a ``Trainer`` that checkpoints and resumes) and then checks
+from it; a ``Trainer`` that checkpoints and resumes; a ``ModelStoreServer``
+over a ``NeurStore`` that takes an upload through ``StoreClient`` and serves
+it back at every width) and then checks
 ``sys.modules``. The same holds for
 ``chip_smoke.py``, whose source is checked for imports.
 """
@@ -67,6 +69,24 @@ with tempfile.TemporaryDirectory() as root:
     assert rep.end_step == 2 and all(np.isfinite(rep.losses))
     rep = Trainer(cfg, root, device="cpu").fit(steps=1, batch=2, seq=32)
     assert rep.resumed and rep.start_step == 2
+
+from repro_torch.server import ModelStoreServer, QuotaManager, StoreClient
+from repro_torch.store import NeurStore, SaveRequest
+
+with tempfile.TemporaryDirectory() as root:
+    store = NeurStore.open(root, device="cpu")
+    with ModelStoreServer(store.engine, quotas=QuotaManager(default_limit=1 << 30)) as srv:
+        client = StoreClient(srv.host, srv.port, tenant="t0")
+        w = np.random.default_rng(0).normal(size=(32, 16)).astype(np.float32)
+        client.save(SaveRequest("base", {"w": w}))
+        rep = client.save(SaveRequest("ft", {"w": w + 1e-4}))
+        assert rep.n_new_bases == 0, rep
+        for bits in (None, 8, 4):
+            got = client.load("ft", bits=bits).materialize()["w"]
+            want = store.engine.load_model("t0/ft", bits=bits).materialize()["w"]
+            assert got.tobytes() == want.tobytes()
+        client.close()
+    store.close()
 
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
