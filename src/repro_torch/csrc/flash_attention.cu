@@ -5,6 +5,7 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:79
 //   flash_attention_pallas (body _flash_kernel) -> flash_attn_tf32<DH>
+//   (dh 32, 64, 80, 128) and flash_attn_fma256 (dh 256)
 //
 // q (B, Sq, H, dh), k/v (B, Sk, KV, dh), float32, read through their
 // strides (the last dimension contiguous; 16-byte vectors where every base
@@ -96,6 +97,21 @@
 // 0 spills. Registers are the limit on a deeper converter: with loads two
 // hand-overs or a tile ahead, or L2 prefetches a tile ahead, dh 128 spilled
 // and ran slower. chip_smoke.py fails the run on a spill.
+//
+// Head dim 256 (recurrentgemma) takes a simpler kernel, flash_attn_fma256:
+// the split design cannot hold q hi + lo for 128 rows (256 KB) in shared
+// memory, nor for 64 rows beside one K slot (128 KB each). It computes the
+// same function in float32 FMA on the CUDA cores (bound at the 67 TFLOP/s
+// float32 peak, 2.2x the three tf32 products' bound), tiled through shared
+// memory: a block of 256 threads owns 64 rows of a slab; q (64 x 256), a
+// K and a V tile of 64 keys and the tile's p (64 x 64) sit in 211 KB.
+// Each thread holds a 4 x 4 block of scores (rows ty + 16 i, keys
+// tx + 16 j: one 16-byte q and k read a row or key serve 16 products) and
+// a 4 x 16 block of O (the same rows, columns 4 tx + 64 jj), so a row's max,
+// sum and rescale live in the 16 threads that own it, reduced by shuffles.
+// Loads are synchronous, with no ring; the same masks, tile skipping and
+// -1e30 bias as above, exp2f in the base-2 domain. A tensor-core design
+// at dh 256 is ROADMAP queue B.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -545,6 +561,195 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attn_tf32(Params p) {
   }
 }
 
+// ------------------------------------------------- head dim 256, CUDA cores
+constexpr int kF_DH = 256;
+constexpr int kF_BQ = 64;                  // rows a block
+constexpr int kF_BK = 64;                  // keys a tile
+constexpr int kF_THREADS = 256;            // 16 x 16: ty = tid / 16, tx = tid % 16
+constexpr int kF_LD = kF_DH + 4;           // floats a q or k row (padded: no bank conflicts)
+constexpr int kF_PLD = kF_BK + 4;          // floats a p row
+constexpr int kF_SMEM = (kF_BQ * kF_LD + kF_BK * kF_LD + kF_BK * kF_DH + kF_BQ * kF_PLD) * 4;
+static_assert(kF_SMEM <= 232448, "shared memory");
+
+__global__ void __launch_bounds__(kF_THREADS, 1) flash_attn_fma256(Params p) {
+  extern __shared__ float4 fsmem[];
+  float* Qs = reinterpret_cast<float*>(fsmem);
+  float* Ks = Qs + kF_BQ * kF_LD;
+  float* Vs = Ks + kF_BK * kF_LD;
+  float* Ps = Vs + kF_BK * kF_DH;
+  constexpr int CH = kF_DH / 4;  // 16-byte units a row
+
+  const int G = p.H / p.KV;
+  const int rows = p.Sq * G;
+  const int tile = gridDim.x - 1 - blockIdx.x;  // heaviest (last) query tiles first
+  const int r0 = tile * kF_BQ;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int q_lo = r0 / G;
+  const int q_hi = (min(r0 + kF_BQ, rows) - 1) / G;
+  const int n_tiles = (p.Sk + kF_BK - 1) / kF_BK;
+  int t_lo = 0, t_hi = n_tiles;
+  const bool all_real = p.sk_true >= 1 && (p.window <= 0 || q_hi < p.sk_true - 1 + p.window);
+  if (all_real) {
+    int k_end = min(p.Sk, p.sk_true);
+    if (p.causal) k_end = min(k_end, q_hi + 1);
+    t_hi = (k_end + kF_BK - 1) / kF_BK;
+    if (p.window > 0) t_lo = max(0, q_lo - p.window + 1) / kF_BK;
+  }
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  {  // the q tile; rows past Sq * G are zero
+    const float* qb = p.q + b * p.qsb;
+    for (int idx = tid; idx < kF_BQ * CH; idx += kF_THREADS) {
+      const int r = idx / CH, c = idx - r * CH, rr = r0 + r;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (rr < rows) x = load4(qb + (rr / G) * p.qss + (kvh * G + rr % G) * p.qsh + c * 4, p.vec);
+      *reinterpret_cast<float4*>(Qs + r * kF_LD + c * 4) = x;
+    }
+  }
+  int qpos[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) qpos[i] = (r0 + ty + 16 * i) / G;
+  float o[4][16], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kMasked;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) o[i][j] = 0.f;
+  }
+  const float* kb = p.k + b * p.ksb + kvh * p.ksh;
+  const float* vb = p.v + b * p.vsb + kvh * p.vsh;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int k0 = t * kF_BK;
+    __syncthreads();  // the last tile's K, V and p are read
+    for (int idx = tid; idx < kF_BK * CH; idx += kF_THREADS) {
+      const int r = idx / CH, c = idx - r * CH, kp = k0 + r;
+      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;  // keys past Sk are zeros
+      if (kp < p.Sk) {
+        kx = load4(kb + kp * p.kss + c * 4, p.vec);
+        vx = load4(vb + kp * p.vss + c * 4, p.vec);
+      }
+      *reinterpret_cast<float4*>(Ks + r * kF_LD + c * 4) = kx;
+      *reinterpret_cast<float4*>(Vs + r * kF_DH + c * 4) = vx;
+    }
+    __syncthreads();
+
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < kF_DH; c += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * kF_LD + c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * kF_LD + c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float a = sc[i][j];
+          a = fmaf(qv[i].x, kv[j].x, a);
+          a = fmaf(qv[i].y, kv[j].y, a);
+          a = fmaf(qv[i].z, kv[j].z, a);
+          sc[i][j] = fmaf(qv[i].w, kv[j].w, a);
+        }
+    }
+
+    const int k_last = k0 + kF_BK - 1;
+    const bool need_mask = k_last >= p.Sk || k_last >= p.sk_true ||
+                           (p.causal && k_last > q_lo) ||
+                           (p.window > 0 && q_hi - k0 >= p.window);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = sc[i][j] * p.scale_log2;
+        if (need_mask) {
+          const int kp = k0 + tx + 16 * j;
+          if (kp >= p.Sk) {
+            x = -INFINITY;  // past the tensor: not a key at all
+          } else {
+            bool ok = kp < p.sk_true;
+            if (p.causal) ok = ok && qpos[i] >= kp;
+            if (p.window > 0) ok = ok && (qpos[i] - kp) < p.window;
+            if (!ok) x = kMasked;
+          }
+        }
+        sc[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= corr;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) o[i][j] *= corr;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float pj = exp2f(sc[i][j] - m_new);
+        l[i] += pj;
+        Ps[(ty + 16 * i) * kF_PLD + tx + 16 * j] = pj;
+      }
+    }
+    __syncthreads();
+
+    // O += P V: rows ty + 16 i, columns 4 tx + 64 jj .. + 3.
+#pragma unroll 4
+    for (int kk = 0; kk < kF_BK; ++kk) {
+      float pr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pr[i] = Ps[(ty + 16 * i) * kF_PLD + kk];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float4 vv = *reinterpret_cast<const float4*>(Vs + kk * kF_DH + 4 * tx + 64 * jj);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[i][4 * jj + 0] = fmaf(pr[i], vv.x, o[i][4 * jj + 0]);
+          o[i][4 * jj + 1] = fmaf(pr[i], vv.y, o[i][4 * jj + 1]);
+          o[i][4 * jj + 2] = fmaf(pr[i], vv.z, o[i][4 * jj + 2]);
+          o[i][4 * jj + 3] = fmaf(pr[i], vv.w, o[i][4 * jj + 3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int rr = r0 + ty + 16 * i;
+    if (rr >= rows) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    float* orow = p.o + ((static_cast<long long>(b) * p.Sq + rr / G) * p.H + kvh * G + rr % G) *
+                            kF_DH;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      *reinterpret_cast<float4*>(orow + 4 * tx + 64 * jj) =
+          make_float4(o[i][4 * jj] / den, o[i][4 * jj + 1] / den, o[i][4 * jj + 2] / den,
+                      o[i][4 * jj + 3] / den);
+  }
+}
+
+int launch_fma256(const Params& p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_fma256,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kF_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = p.H / p.KV;
+  const long long tiles = (static_cast<long long>(p.Sq) * G + kF_BQ - 1) / kF_BQ;
+  dim3 grid(static_cast<unsigned>(tiles), p.KV, p.B);
+  flash_attn_fma256<<<grid, kF_THREADS, kF_SMEM, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int DH>
 int launch(const Params& p, cudaStream_t stream) {
   using C = Cfg<DH>;
@@ -576,6 +781,7 @@ extern "C" int flash_attention_smem_bytes(int dh) {
     case 64: return Cfg<64>::SMEM;
     case 80: return Cfg<80>::SMEM;
     case 128: return Cfg<128>::SMEM;
+    case 256: return kF_SMEM;
     default: return 0;
   }
 }
@@ -603,6 +809,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     case 64: return launch<64>(p, s);
     case 80: return launch<80>(p, s);
     case 128: return launch<128>(p, s);
+    case 256: return launch_fma256(p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

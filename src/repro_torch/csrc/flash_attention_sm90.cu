@@ -33,14 +33,25 @@
 //   heads of its KV head. The block has three warpgroups: one producer
 //   thread issues the TMA loads, and two consumer warpgroups own 64 rows
 //   each. The q tile is loaded once, by all threads, into shared memory.
+// * Head dim 256 (recurrentgemma) takes another layout, because the one
+//   above does not fit: q for 128 rows (64 KB) and a 3-stage ring of K and
+//   V tiles (6 x 32 KB) come to 257 KB against the 227 KB a block may use,
+//   and the O accumulator alone is 128 float32 registers a consumer
+//   thread, against the 168 a thread of a 384-thread block may hold. So a
+//   block of dh 256 owns 64 rows and has one consumer warpgroup beside the
+//   producer (256 threads, up to 255 registers a thread): q 32 KB plus the
+//   same 3-stage ring, 225 KB. O += P V is one wgmma m64 n256 k16 a
+//   16-key step. Each K/V tile then serves half as many rows, so the card
+//   reads K/V twice as often (from L2: a slab's tiles are shared by all
+//   of its blocks) and a block holds one warpgroup's products in flight.
 // * K/V tiles of 64 keys go through a ring of 3 stages. A 4-D tensor map
 //   over (dh, heads, positions, batch) reads the strided layout without
 //   copies; each stage completes on a "full" mbarrier (bytes) and is handed
 //   back on an "empty" one (one arrival per consumer warp). The loads of
 //   the next tiles run while the consumers compute.
 // * S = Q K^T is wgmma m64 n64 k16, Q and K both K-major in shared memory,
-//   swizzled as TMA writes them: 128-byte rows (64 columns a box) for dh 64
-//   and 128, 64-byte rows for dh 32, 32-byte rows (five boxes) for dh 80.
+//   swizzled as TMA writes them: 128-byte rows (64 columns a box) for dh 64,
+//   128 and 256, 64-byte rows for dh 32, 32-byte rows (five boxes) for dh 80.
 // * The running max and sum stay in registers in the accumulator's layout,
 //   reduced over the 4 threads of a row with shuffles; exp2f with log2(e)
 //   folded into the scale.
@@ -69,23 +80,26 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kBQ = 128;       // rows (query position, head in group) per block
 constexpr int kBK = 64;        // keys per tile
 constexpr int kStages = 3;     // K/V ring depth
-constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int DH>
 struct Cfg {
-  static_assert(DH == 32 || DH == 64 || DH == 80 || DH == 128, "head dim");
+  static_assert(DH == 32 || DH == 64 || DH == 80 || DH == 128 || DH == 256, "head dim");
+  // Consumer warpgroups of 64 rows each, after the producer warpgroup.
+  static constexpr int CONSUMERS = DH == 256 ? 1 : 2;
+  static constexpr int BQ = 64 * CONSUMERS;         // rows (query position, head in group) a block
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
   static constexpr int SW = DH % 64 == 0 ? 128 : (DH == 32 ? 64 : 32);  // bytes a swizzled row
   static constexpr int BOX = SW / 2;                                   // columns a TMA box
   static constexpr int NBOX = DH / BOX;                                // boxes along dh
   static constexpr uint32_t LAYOUT = SW == 128 ? 1 : (SW == 64 ? 2 : 3);
-  static constexpr int Q_BYTES = kBQ * DH * 2;
+  static constexpr int Q_BYTES = BQ * DH * 2;
   static constexpr int KV_BYTES = kBK * DH * 2;  // one K or one V tile
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * kStages * KV_BYTES + 2 * kStages * 8;
+  static_assert(SMEM <= 232448, "shared memory");
 };
 
 struct Params {
@@ -102,7 +116,8 @@ __device__ __forceinline__ void pv(float (&o)[DH / 2], const uint32_t (&a)[4], u
   if constexpr (DH == 32) wgmma_rs_n32(o, a, db);
   else if constexpr (DH == 64) wgmma_rs_n64(o, a, db);
   else if constexpr (DH == 80) wgmma_rs_n80(o, a, db);
-  else wgmma_rs_n128(o, a, db);
+  else if constexpr (DH == 128) wgmma_rs_n128(o, a, db);
+  else wgmma_rs_n256(o, a, db);
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
@@ -110,7 +125,7 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cfg<DH>::THREADS, 1)
     flash_attn_sm90(const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap, Params p) {
   using C = Cfg<DH>;
@@ -126,13 +141,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int G = p.H / p.KV;
   const int rows = p.Sq * G;
   const int tile = gridDim.x - 1 - blockIdx.x;  // heaviest (last) query tiles first
-  const int r0 = tile * kBQ;
+  const int r0 = tile * C::BQ;
   const int kvh = blockIdx.y, b = blockIdx.z;
 
   // Key tiles to sweep: as in flash_attention.cu, the tiles masked for all
   // rows are skipped only when every row of the block has a real key.
   const int q_lo = r0 / G;
-  const int q_hi = (min(r0 + kBQ, rows) - 1) / G;
+  const int q_hi = (min(r0 + C::BQ, rows) - 1) / G;
   const int n_tiles = (p.Sk + kBK - 1) / kBK;
   int t_lo = 0, t_hi = n_tiles;
   const bool all_real = p.sk_true >= 1 && (p.window <= 0 || q_hi < p.sk_true - 1 + p.window);
@@ -146,7 +161,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+      mbar_init(&empty[s], 4 * C::CONSUMERS);  // one arrival per consumer warp
     }
     fence_mbar_init();
   }
@@ -157,7 +172,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   {
     constexpr int CH = DH / 8;  // 16-byte units a row
     const __nv_bfloat16* qb = p.q + b * p.qsb;
-    for (int idx = threadIdx.x; idx < kBQ * CH; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < C::BQ * CH; idx += C::THREADS) {
       const int r = idx / CH, c = idx - r * CH;
       const int rr = r0 + r;
       uint4 x = make_uint4(0u, 0u, 0u, 0u);
@@ -165,7 +180,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int qp = rr / G, h = kvh * G + rr % G;
         x = *reinterpret_cast<const uint4*>(qb + qp * p.qss + h * p.qsh + c * 8);
       }
-      const uint32_t off = (c * 16 / C::SW) * (kBQ * C::SW) + r * C::SW + (c * 16) % C::SW;
+      const uint32_t off = (c * 16 / C::SW) * (C::BQ * C::SW) + r * C::SW + (c * 16) % C::SW;
       *reinterpret_cast<uint4*>(Qs + swizzle<C::SW>(off)) = x;
     }
   }
@@ -220,7 +235,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
       const uint32_t box = kk * 32 / C::SW, within = kk * 32 % C::SW;
-      const uint64_t da = make_desc(q_base + box * kBQ * C::SW + within, 1, SBO, C::LAYOUT);
+      const uint64_t da = make_desc(q_base + box * C::BQ * C::SW + within, 1, SBO, C::LAYOUT);
       const uint64_t db = make_desc(k_base + box * kBK * C::SW + within, 1, SBO, C::LAYOUT);
       wgmma_ss_n64(sc, da, db, kk > 0);
     }
@@ -378,9 +393,9 @@ int launch(const Params& p, const void* k, const void* v, long long ksb, long lo
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int G = p.H / p.KV;
-  const long long tiles = (static_cast<long long>(p.Sq) * G + kBQ - 1) / kBQ;
+  const long long tiles = (static_cast<long long>(p.Sq) * G + C::BQ - 1) / C::BQ;
   dim3 grid(static_cast<unsigned>(tiles), p.KV, p.B);
-  flash_attn_sm90<DH><<<grid, kThreads, C::SMEM, stream>>>(kmap, vmap, p);
+  flash_attn_sm90<DH><<<grid, C::THREADS, C::SMEM, stream>>>(kmap, vmap, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -394,6 +409,7 @@ extern "C" int flash_attention_sm90_smem_bytes(int dh) {
     case 64: return Cfg<64>::SMEM;
     case 80: return Cfg<80>::SMEM;
     case 128: return Cfg<128>::SMEM;
+    case 256: return Cfg<256>::SMEM;
     default: return 0;
   }
 }
@@ -417,6 +433,7 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
     case 64: return launch<64>(p, k, v, ksb, kss, ksh, vsb, vss, vsh, s);
     case 80: return launch<80>(p, k, v, ksb, kss, ksh, vsb, vss, vsh, s);
     case 128: return launch<128>(p, k, v, ksb, kss, ksh, vsb, vss, vsh, s);
+    case 256: return launch<256>(p, k, v, ksb, kss, ksh, vsb, vss, vsh, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

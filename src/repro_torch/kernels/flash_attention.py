@@ -18,8 +18,13 @@ float32   ``csrc/flash_attention.cu``      rtol 1e-4, atol 2e-5: the
           (wgmma on the tf32 tensor        reference's tolerance, which one
           cores, every operand split into  tf32 product would miss
           tf32 hi + lo: three products
-          for each)
+          for each; at dh 256 float32
+          FMA on the CUDA cores)
 ========  ===============================  =====================================
+
+At head dim 256 (recurrentgemma) the bfloat16 kernel runs 64-row blocks
+with one consumer warpgroup, and the float32 route a simpler kernel on the
+CUDA cores: the split-tf32 layout does not fit in shared memory there.
 
 The wrapper takes a kernel for CUDA tensors and the plain version of
 ``ref.py`` for CPU tensors. A CUDA input that its route's kernel cannot take
@@ -55,7 +60,8 @@ from . import ref
 from ._build import load_library
 from .dequant_matmul import _on_cpu
 
-__all__ = ["HEAD_DIMS", "ROUTES", "FlashAttentionFn", "flash_attention", "launches"]
+__all__ = ["HEAD_DIMS", "ROUTES", "FlashAttentionFn", "flash_attention", "launches",
+           "launches_dh256"]
 
 #: The library each dtype launches; the only dispatch there is.
 ROUTES = {torch.bfloat16: "flash_attention_sm90", torch.float32: "flash_attention"}
@@ -64,8 +70,13 @@ ROUTES = {torch.bfloat16: "flash_attention_sm90", torch.float32: "flash_attentio
 #: calls do not count). ``ops.launch_counts()`` gives them and their sum.
 launches = {"bfloat16": 0, "float32": 0}
 
-#: Head dims both kernels are instantiated for.
-HEAD_DIMS = (32, 64, 80, 128)
+#: Of those, the launches at head dim 256 (recurrentgemma), which take a
+#: layout of their own on both routes; ``ops.launch_counts()`` gives them as
+#: ``flash_attention_<dtype>_dh256``.
+launches_dh256 = {"bfloat16": 0, "float32": 0}
+
+#: Head dims both routes are built for.
+HEAD_DIMS = (32, 64, 80, 128, 256)
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -178,5 +189,8 @@ def _launch(q, k, v, causal: bool, window: int, sk_true) -> torch.Tensor:
         raise RuntimeError(f"flash_attention: the {route} kernel failed with error {err} "
                            "(> 0: CUDA error; -1: no TMA encoder in the driver; "
                            "-1000 - r: tensor map refused with driver result r)")
-    launches[str(q.dtype).removeprefix("torch.")] += 1
+    route_key = str(q.dtype).removeprefix("torch.")
+    launches[route_key] += 1
+    if dh == 256:
+        launches_dh256[route_key] += 1
     return o

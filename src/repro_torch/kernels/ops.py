@@ -54,13 +54,15 @@ def resolve_device(device) -> torch.device:
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last reset: ``flash_attention``
     is that wrapper's total, ``flash_attention_<dtype>`` its launches on
-    each dtype's route (``flash_attention.ROUTES``)."""
+    each dtype's route (``flash_attention.ROUTES``) and
+    ``flash_attention_<dtype>_dh256`` those of them at head dim 256."""
     fa = {f"flash_attention_{dtype}": n for dtype, n in _fa.launches.items()}
-    return {**_dm.launches, **_ql2.launches, "flash_attention": sum(fa.values()), **fa}
+    fa256 = {f"flash_attention_{dtype}_dh256": n for dtype, n in _fa.launches_dh256.items()}
+    return {**_dm.launches, **_ql2.launches, "flash_attention": sum(fa.values()), **fa, **fa256}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_dm.launches, _ql2.launches, _fa.launches):
+    for counts in (_dm.launches, _ql2.launches, _fa.launches, _fa.launches_dh256):
         for key in counts:
             counts[key] = 0
 

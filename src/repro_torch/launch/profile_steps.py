@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_steps [--trace PATH.json.gz]
     PYTHONPATH=src python -m repro_torch.launch.profile_steps --train
     PYTHONPATH=src python -m repro_torch.launch.profile_steps --window-probe 60
+    PYTHONPATH=src python -m repro_torch.launch.profile_steps --arch recurrentgemma-9b
 
 Builds internlm2-1.8b as published (24 layers, bfloat16, random weights
 from a seed), the model of ``chip_smoke.py``'s phase 6, then runs one
@@ -15,6 +16,15 @@ busy share of the plain and of the profiled wall time, the kernels and the
 top-level host ops issued, the median gap between one kernel's end and the
 next one's start, and the kernels that take the most device time. The last
 line of the output is one JSON object with those numbers.
+
+``--arch`` builds another architecture of ``configs.list_archs()`` as
+published instead (its SMOKE size with ``--smoke``). The prefill window
+also splits the device's busy time into the attention kernels
+(``flash_attn``), the matrix products (cuBLAS's and CUTLASS's GEMM
+kernels) and the recurrent blocks' scans (the kernels launched inside the
+``rglru_scan`` and ``rwkv6_chunks`` ranges of ``models/recurrent.py``),
+the rest being elementwise work, norms and the MoE's routing
+(:func:`trace_prefill`, which ``chip_smoke.py`` also calls).
 
 ``--train`` traces one ``make_train_step`` of the same model instead (4 x
 2048 ``SyntheticLM`` tokens, one microbatch, remat as the config has it,
@@ -60,10 +70,15 @@ from ..kernels import ops
 from ..models import init_cache, init_params
 from .steps import make_prefill_step, make_serve_step
 
-__all__ = ["kernel_ms", "main", "summarize", "trace_compressed_decode", "trace_train_step",
-           "window_probe"]
+__all__ = ["kernel_ms", "main", "summarize", "trace_compressed_decode", "trace_prefill",
+           "trace_train_step", "window_probe"]
 
 ARCH, SEED = "internlm2-1.8b", 0
+# The record_function ranges of models/recurrent.py: the RG-LRU scan and the
+# RWKV-6 chunk loop (their kernels' device time is the scans' share).
+SCAN_RANGES = ("rglru_scan", "rwkv6_chunks")
+# Substrings of the matrix-product kernels' names (cuBLAS, cuBLASLt, CUTLASS).
+GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
 # Idle host seconds on each side of a kernel_ms trace's runs (_active_kernels).
 WINDOW_PAD_S = 0.05
 # (batch, prefill length, prompt length, serve steps): published, and --smoke.
@@ -96,15 +111,21 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def summarize(prof, wall_s: float, reps: int, top: int = 8, match: str | None = None) -> dict:
+def summarize(prof, wall_s: float, reps: int, top: int = 8, match: str | None = None,
+              ranges: tuple[str, ...] = ()) -> dict:
     """Device busy time, shares, kernel and host-op counts of a profiled
     window of ``reps`` repetitions that took ``wall_s`` on the wall clock;
     with ``match``, also the device time of the kernels whose name holds it
-    and their share of the busy time."""
-    kernels, host_ops = [], 0
+    and their share of the busy time; with ``ranges``, the device time of
+    the kernels launched inside each ``record_function`` range of those
+    names (whose own device-side markers are not kernels)."""
+    kernels, host_ops, in_range = [], 0, dict.fromkeys(ranges, 0.0)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            kernels.append(e)
+            if e.name not in in_range:
+                kernels.append(e)
+        elif e.name in in_range:
+            in_range[e.name] += e.device_time_total
         elif e.cpu_parent is None and e.name.startswith("aten::"):
             host_ops += 1
     intervals = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -121,6 +142,8 @@ def summarize(prof, wall_s: float, reps: int, top: int = 8, match: str | None = 
         mine = sum(t for n, (t, _) in by_name.items() if match in n)
         extra = {"match": match, "match_ms": mine / reps / 1e3,
                  "match_share_of_busy": mine / busy_us if busy_us else 0.0}
+    if ranges:
+        extra["ranges_ms"] = {n: t / reps / 1e3 for n, t in in_range.items()}
     return {
         "wall_ms": wall_us / reps / 1e3,
         "device_busy_ms": busy_us / reps / 1e3,
@@ -296,6 +319,38 @@ def trace_train_step(step_fn, params, opt, batch, plain_ms: float | None = None)
                    batch=size, len=length)
 
 
+def trace_prefill(prefill_fn, params, batch, plain_ms: float | None = None) -> dict:
+    """One ``prefill_fn(params, batch)`` traced: :func:`summarize` of the
+    step with the ``flash_attn`` kernels' share of the busy time and
+    ``shares``, the busy time split into attention, GEMMs, the recurrent
+    scans (``SCAN_RANGES``) and the rest. ``plain_ms`` is the step's
+    unprofiled ms; without it one untraced step is timed first."""
+    dev = next(iter(batch.values())).device
+
+    def run():
+        prefill_fn(params, batch)
+
+    if plain_ms is None:
+        run()
+        _sync(dev)
+        t0 = time.perf_counter()
+        run()
+        _sync(dev)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall = _profiled(run, 1, dev)
+    summary = summarize(prof, wall, 1, match="flash_attn", ranges=SCAN_RANGES)
+    busy = summary["device_busy_ms"]
+    gemm = sum(e - s for s, e, name in _kernels(prof)
+               if any(g in name.lower() for g in GEMM_NAMES)) / 1e3
+    parts = {"attention": summary["match_ms"], "gemm": gemm,
+             "scan": sum(summary["ranges_ms"].values())}
+    parts["other"] = max(busy - sum(parts.values()), 0.0)
+    summary["shares"] = {k: (v / busy if busy else 0.0) for k, v in parts.items()}
+    summary["parts_ms"] = parts
+    size, length = next(iter(batch.values())).shape[:2]
+    return _window(summary, plain_ms, batch=size, len=length)
+
+
 def _train(cfg, smoke: bool, dev: torch.device) -> dict:
     from ..data import SyntheticLM
     from ..optim import adamw_init
@@ -348,7 +403,9 @@ def _report(out: dict, windows) -> None:
               f"{w['host_ops']:.1f} top-level host ops a step, median gap "
               f"{w['median_gap_us']:.3f} us"
               + (f"; {w['match']} {w['match_ms']:.6f} ms a step, "
-                 f"{w['match_share_of_busy']:.4f} of busy" if "match" in w else ""),
+                 f"{w['match_share_of_busy']:.4f} of busy" if "match" in w else "")
+              + ("; shares of busy " + ", ".join(f"{k} {v:.4f}" for k, v in w["shares"].items())
+                 if "shares" in w else ""),
               flush=True)
         for k in w["top_kernels"]:
             print(f"  {k['ms']:.6f} ms x{k['count']:.1f}  {k['name']}", flush=True)
@@ -359,6 +416,7 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--smoke", action="store_true", help="SMOKE size, a few tokens")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--arch", default=ARCH, help="an architecture of configs.list_archs()")
     p.add_argument("--trace", default=None, help="write the serve window's Chrome trace here")
     p.add_argument("--compressed", action="store_true",
                    help="trace the compressed decode step at bits 8 and 4 instead")
@@ -378,7 +436,7 @@ def main(argv=None) -> dict:
                "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}
         _report(out, ("compressed_bits8", "compressed_bits4"))
         return out
-    cfg = get_config(ARCH, smoke=args.smoke)
+    cfg = get_config(args.arch, smoke=args.smoke)
     if args.train:
         out = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.param_dtype,
                "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
@@ -396,21 +454,16 @@ def main(argv=None) -> dict:
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                            (batch, prefill_len))).to(dev)
     prefill = make_prefill_step(cfg)
-
-    def run_prefill():
-        prefill(params, {"tokens": tokens})
-
-    run_prefill()
+    prefill(params, {"tokens": tokens})
     _sync(dev)
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        run_prefill()
+        prefill(params, {"tokens": tokens})
         _sync(dev)
         times.append(time.perf_counter() - t0)
-    prof, wall = _profiled(run_prefill, 1, dev)
-    out["prefill"] = _window(summarize(prof, wall, 1), float(np.median(times)) * 1e3,
-                             batch=batch, len=prefill_len)
+    out["prefill"] = trace_prefill(prefill, params, {"tokens": tokens},
+                                   float(np.median(times)) * 1e3)
     del tokens
     if dev.type == "cuda":
         torch.cuda.empty_cache()

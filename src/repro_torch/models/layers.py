@@ -1,4 +1,4 @@
-"""Dense transformer layers: norms, RoPE, attention, MLPs.
+"""Transformer layers: norms, RoPE, attention, MLPs, MoE.
 
 The port of the reference's ``repro/models/layers.py``. Every layer has
 (a) a sequence ``forward`` used by prefill and evaluation, and (b) a
@@ -12,8 +12,9 @@ On the card, :func:`chunked_attention` is the hand-written CUDA kernel
 autograd function gives its gradient; on the CPU it is a plain port of the
 reference's chunked scan, which autograd differentiates as XLA does the
 reference's. The reference's sharding constraints have no counterpart
-here: the port runs on one device. ``MoE`` is not ported yet (ROADMAP
-queue A5).
+here: the port runs on one device. ``MoE``'s routing and expert products
+are plain PyTorch, as the reference's are plain ``jnp`` outside any
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -238,3 +239,75 @@ class GeluMLP:
     def forward(self, p, x):
         # jax.nn.gelu defaults to the tanh approximation.
         return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoE:
+    """Top-k routed experts with capacity-based dispatch (GShard-style, per
+    batch row), optionally beside a dense SwiGLU residual (arctic)."""
+
+    d_ff: int
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    dense_residual: bool = False
+
+    def init(self, gen, d_model, dtype, device, lead=()):
+        lead = tuple(lead)
+        e, f = self.n_experts, self.d_ff
+        std_in = d_model ** -0.5
+        p = {
+            "router": _normal(gen, lead + (d_model, e), std_in, torch.float32, device),
+            "wg": _normal(gen, lead + (e, d_model, f), std_in, dtype, device),
+            "wu": _normal(gen, lead + (e, d_model, f), std_in, dtype, device),
+            "wd": _normal(gen, lead + (e, f, d_model), f ** -0.5, dtype, device),
+        }
+        if self.dense_residual:
+            p["dense"] = SwiGLU(self.d_ff).init(gen, d_model, dtype, device, lead)
+        return p
+
+    def capacity(self, n_tokens: int) -> int:
+        """Slots an expert has in one batch row of ``n_tokens`` tokens."""
+        return max(int(self.capacity_factor * self.top_k * n_tokens / self.n_experts),
+                   self.top_k)
+
+    def route(self, p, x):
+        """The routing of x (B, S, D): (gates (B, S·k) renormalised over the
+        top k, float32; dest (B, S·k), each (token, choice)'s slot
+        ``expert · cap + position`` or the overflow row ``E · cap`` past
+        capacity; cap). Positions come from a cumsum within each row over
+        the flattened (S·k) order, as in the reference."""
+        b, s, _ = x.shape
+        e, k = self.n_experts, self.top_k
+        cap = self.capacity(s)
+        gates = torch.softmax(x.to(torch.float32) @ p["router"], dim=-1)   # (B, S, E)
+        top_g, top_e = torch.topk(gates, k, dim=-1)                        # (B, S, k)
+        top_g = top_g / torch.clamp_min(top_g.sum(dim=-1, keepdim=True), 1e-9)
+        flat_e = top_e.reshape(b, s * k)
+        onehot = F.one_hot(flat_e, e)                                       # (B, S·k, E)
+        pos = ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(dim=-1)     # (B, S·k)
+        dest = torch.where(pos < cap, flat_e * cap + pos, e * cap)
+        return top_g.reshape(b, s * k), dest, cap
+
+    def forward(self, p, x):
+        """x (B, S, D) → (B, S, D). Tokens past an expert's capacity in their
+        row are dropped (their slot is the overflow row, which is never
+        computed). Expert products are einsums over (B, E, C, D)."""
+        b, s, d = x.shape
+        e, k = self.n_experts, self.top_k
+        gates, dest, cap = self.route(p, x)
+        tok = torch.arange(s * k, device=x.device) // k
+        idx = dest[..., None].expand(b, s * k, d)
+        xe = torch.zeros((b, e * cap + 1, d), dtype=x.dtype, device=x.device)
+        xe = xe.scatter_add(1, idx, x[:, tok])
+        xe = xe[:, :e * cap].reshape(b, e, cap, d)
+        h = F.silu(torch.einsum("becd,edf->becf", xe, p["wg"]))
+        h = h * torch.einsum("becd,edf->becf", xe, p["wu"])
+        ye = torch.einsum("becf,efd->becd", h, p["wd"])
+        ye_flat = torch.cat([ye.reshape(b, e * cap, d),
+                             torch.zeros((b, 1, d), dtype=ye.dtype, device=ye.device)], dim=1)
+        y = torch.gather(ye_flat, 1, idx) * gates[..., None].to(ye.dtype)
+        y = y.reshape(b, s, k, d).sum(dim=2)
+        if self.dense_residual:
+            y = y + SwiGLU(self.d_ff).forward(p["dense"], x)
+        return y

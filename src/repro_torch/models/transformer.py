@@ -14,10 +14,12 @@ AdamW state). Where the reference scans over periods, the port loops over
 them in Python; where it wraps a period in ``jax.checkpoint``
 (``cfg.remat``), the port wraps it in ``torch.utils.checkpoint``.
 
-Block = sequence mix (attn / local_attn) + channel mix (swiglu / gelu), each
-pre-RMSNormed with a residual add. The recurrent blocks (rglru, rwkv6) and
-the MoE / RWKV channel mixes are not ported yet and raise
-``NotImplementedError``.
+Block = sequence mix (attn / local_attn / rglru / rwkv6) + channel mix
+(swiglu / gelu / moe / moe_dense / rwkv_cm), each pre-RMSNormed with a
+residual add. The recurrent blocks carry their decode state in the cache
+beside the attention layers' K/V (``h`` and ``conv``; ``wkv`` and
+``shift_tm``; the channel mix's ``shift_cm``), stacked over periods in
+the same way; ``decode_step`` updates every layer's cache in place.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import resolve_device
 from .config import ModelConfig
-from .layers import AttentionBlock, GeluMLP, SwiGLU, _normal, rms_norm
+from .layers import AttentionBlock, GeluMLP, MoE, SwiGLU, _normal, rms_norm
+from .recurrent import RGLRUBlock, RWKV6ChannelMix, RWKV6TimeMix
 
 Params = dict[str, Any]
 
@@ -56,10 +59,10 @@ def _seq_block(cfg: ModelConfig, kind: str):
             chunk=cfg.attn_chunk,
             norm_eps=cfg.norm_eps,
         )
-    if kind in ("rglru", "rwkv6"):
-        raise NotImplementedError(
-            f"{cfg.name}: sequence block {kind!r} (models/recurrent.py) is not "
-            "ported yet: ROADMAP queue A4, the recurrent blocks")
+    if kind == "rglru":
+        return RGLRUBlock(d_rnn=cfg.d_rnn)
+    if kind == "rwkv6":
+        return RWKV6TimeMix(n_heads=cfg.d_model // cfg.rwkv_head_dim, d_head=cfg.rwkv_head_dim)
     raise ValueError(kind)
 
 
@@ -69,13 +72,10 @@ def _mix_block(cfg: ModelConfig, kind: str):
     if kind == "gelu":
         return GeluMLP(cfg.d_ff)
     if kind in ("moe", "moe_dense"):
-        raise NotImplementedError(
-            f"{cfg.name}: channel mix {kind!r} (models/layers.py MoE) is not "
-            "ported yet: ROADMAP queue A5, MoE")
+        return MoE(cfg.d_ff, cfg.n_experts, cfg.top_k, cfg.capacity_factor,
+                   dense_residual=(kind == "moe_dense"))
     if kind == "rwkv_cm":
-        raise NotImplementedError(
-            f"{cfg.name}: channel mix 'rwkv_cm' (models/recurrent.py) is not "
-            "ported yet: ROADMAP queue A4, the recurrent blocks")
+        return RWKV6ChannelMix(cfg.d_ff)
     raise ValueError(kind)
 
 
@@ -176,11 +176,21 @@ def opt_from_reference(state, device="cuda"):
 
 # --------------------------------------------------------- forward (sequence)
 def _apply_layer(cfg, seq_blk, mix_blk, p, x, positions):
-    """Pre-LN residual block."""
+    """Pre-LN residual block. The recurrent blocks' and the RWKV channel
+    mix's final states are dropped: a forward starts every layer from zero
+    state, as the reference's does."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    x = x + seq_blk.forward(p["seq"], h, positions)
+    if isinstance(seq_blk, AttentionBlock):
+        a = seq_blk.forward(p["seq"], h, positions)
+    else:
+        a, _ = seq_blk.forward(p["seq"], h)
+    x = x + a
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + mix_blk.forward(p["mix"], h)
+    if isinstance(mix_blk, RWKV6ChannelMix):
+        m, _ = mix_blk.forward(p["mix"], h)
+    else:
+        m = mix_blk.forward(p["mix"], h)
+    return x + m
 
 
 def _embed_in(cfg: ModelConfig, params, batch):
@@ -249,23 +259,46 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig):
 
 # -------------------------------------------------------------------- decode
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Decode cache tree, stacked over periods like the params."""
+    """Decode cache tree, stacked over periods like the params: a layer's
+    K/V or recurrent state, plus the RWKV channel mix's token shift."""
     dev = resolve_device(device)
     dtype = _dtype(cfg.compute_dtype)
-    cache = {"periods": {f"slot{i}": sb.init_cache(batch, max_len, dtype, dev, (cfg.n_periods,))
-                         for i, (sb, _) in enumerate(_blocks_for_period(cfg))}}
+
+    def one_layer(sb, mb, lead=()):
+        if isinstance(sb, AttentionBlock):
+            c = sb.init_cache(batch, max_len, dtype, dev, lead)
+        elif isinstance(sb, RGLRUBlock):
+            c = sb.init_state(batch, dtype, dev, lead)
+        else:
+            c = sb.init_state(batch, cfg.d_model, dtype, dev, lead)
+        if isinstance(mb, RWKV6ChannelMix):
+            c.update(mb.init_state(batch, cfg.d_model, dtype, dev, lead))
+        return c
+
+    cache = {"periods": {f"slot{i}": one_layer(sb, mb, (cfg.n_periods,))
+                         for i, (sb, mb) in enumerate(_blocks_for_period(cfg))}}
     tail_blocks = _blocks_for_tail(cfg)
     if tail_blocks:
-        cache["tail"] = [sb.init_cache(batch, max_len, dtype, dev) for sb, _ in tail_blocks]
+        cache["tail"] = [one_layer(sb, mb) for sb, mb in tail_blocks]
     return cache
 
 
 def _decode_layer(cfg, seq_blk, mix_blk, p, x, cache, pos):
+    """One token through a layer; its entries of ``cache`` are updated in
+    place: ``shift_cm`` by the RWKV channel mix, the rest by the sequence
+    block. A mix without state (MLPs, MoE) runs its forward on the token."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    a, cache = seq_blk.decode(p["seq"], h, cache, pos)
+    if isinstance(seq_blk, AttentionBlock):
+        a, _ = seq_blk.decode(p["seq"], h, cache, pos)
+    else:
+        a, _ = seq_blk.decode(p["seq"], h, {k: v for k, v in cache.items() if k != "shift_cm"})
     x = x + a
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + mix_blk.forward(p["mix"], h), cache
+    if isinstance(mix_blk, RWKV6ChannelMix):
+        m, _ = mix_blk.decode(p["mix"], h, {"shift_cm": cache["shift_cm"]})
+    else:
+        m = mix_blk.forward(p["mix"], h)
+    return x + m, cache
 
 
 def decode_step(params: Params, cache, batch: dict, pos, cfg: ModelConfig):

@@ -15,7 +15,8 @@ split; for ``quantized_l2``, every tile shape, D % 16 not zero, D in one
 chunk and in many, an unaligned query view, constant rows, rows that
 nearly coincide with a query and bit-identical repeats, and a CUDA
 index's device mirror; for ``flash_attention``, both
-routes (bfloat16 and split tf32, both on the tensor cores), every head dim,
+routes (bfloat16 and split tf32, both on the tensor cores; float32 FMA at
+head dim 256), every head dim, recurrentgemma's windowed prefill shape,
 groups that do not divide the 128-row tile, strided inputs, key lengths
 short of Sk, rows that have no real key, the bfloat16 route's alignment
 rules, and for float32 rows that do not start on 16 bytes, a peaked
@@ -26,7 +27,8 @@ through an attention block, microbatched train steps against the CPU and
 a ``Trainer`` that checkpoints and resumes on the card; for the store's
 front door, an HTTP upload whose probes launch ``quantized_l2`` from the
 server's handler thread, a delete and vacuum that compact a CUDA mirror,
-and concurrent downloads during a save.
+and concurrent downloads during a save; for the model zoo, the recurrent
+and MoE smoke models' forward and decode against the CPU.
 """
 
 import dataclasses
@@ -42,7 +44,7 @@ from repro_torch.kernels import dequant_matmul as dm
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.launch.compressed_serve import DecoderSpec, greedy_decode, save_decoder
-from repro_torch.models import forward, init_params, layers
+from repro_torch.models import decode_step, forward, init_cache, init_params, layers
 
 pytestmark = pytest.mark.cuda
 
@@ -353,6 +355,10 @@ def test_save_load_decode_on_the_card_matches_the_cpu(cuda, tmp_path):
     (1, 130, 90, 6, 2, 32, False, 20, None),    # rows past 108 have no real key
     (2, 96, 160, 4, 2, 64, False, 0, 131),      # keys masked past sk_true
     (1, 1, 300, 8, 2, 128, True, 0, None),      # one query row
+    (1, 256, 256, 16, 1, 256, True, 64, None),  # dh = 256 (recurrentgemma): MQA + window
+    (2, 130, 200, 4, 2, 256, False, 0, 170),    # dh = 256: ragged, keys past sk_true
+    (1, 96, 96, 8, 8, 256, True, 0, None),      # dh = 256: one head a KV head
+    (1, 130, 90, 6, 2, 256, False, 20, None),   # dh = 256: rows past 108 have no real key
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, b, sq, sk, h, kv, dh, causal, window,
@@ -370,10 +376,11 @@ def test_flash_attention_kernel_matches_plain(cuda, b, sq, sk, h, kv, dh, causal
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
 
 
+@pytest.mark.parametrize("dh", [64, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_reads_strided_inputs(cuda, dtype):
+def test_flash_attention_reads_strided_inputs(cuda, dtype, dh):
     rng = np.random.default_rng(9)
-    qkv = torch.from_numpy(rng.normal(0, 1, (2, 77, 8 + 2 + 2, 64)).astype(np.float32)).to(
+    qkv = torch.from_numpy(rng.normal(0, 1, (2, 77, 8 + 2 + 2, dh)).astype(np.float32)).to(
         cuda, dtype)
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
     assert not q.is_contiguous()
@@ -430,6 +437,25 @@ def test_flash_attention_f32_at_the_prefill_shape_matches_plain(cuda):
     assert ops.launch_counts()["flash_attention_float32"] == before + 1
     want = ref.flash_attention(q, k, v, causal=True)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_the_recurrentgemma_prefill_shape(cuda, dtype):
+    """recurrentgemma-9b's local attention on an 8,192-token prompt: q (1,
+    8192, 16, 256), k/v (1, 8192, 1, 256), causal, window 2048, one launch
+    on the dtype's route."""
+    rng = np.random.default_rng(256)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(cuda, dtype)
+               for shape in ((1, 8192, 16, 256), (1, 8192, 1, 256), (1, 8192, 1, 256)))
+    key = f"flash_attention_{str(dtype).split('.')[1]}"
+    before = ops.launch_counts()
+    got = fa.flash_attention(q, k, v, causal=True, window=2048)
+    after = ops.launch_counts()
+    assert after[key] == before[key] + 1
+    assert after[f"{key}_dh256"] == before[f"{key}_dh256"] + 1
+    want = ref.flash_attention(q, k, v, causal=True, window=2048)
+    tol = dict(rtol=1e-4, atol=2e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-5)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
 
 
 def test_flash_attention_f32_reads_rows_off_16_bytes(cuda):
@@ -501,6 +527,36 @@ def test_model_forward_on_the_card_matches_the_cpu(cuda):
     got = forward(gparams, {"tokens": toks.to(cuda)}, cfg)
     assert ops.launch_counts()["flash_attention"] == before + cfg.n_layers
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch,d_head", [("recurrentgemma-9b", 256), ("rwkv6-7b", None),
+                                         ("granite-moe-3b-a800m", 32), ("arctic-480b", 32)])
+def test_zoo_forward_and_decode_on_the_card_match_the_cpu(cuda, arch, d_head):
+    """The recurrent and MoE smoke models (float32) on the card against the
+    CPU from the same parameters: the forward's logits (recurrentgemma's
+    local attention through the float32 kernel at head dim 256, the MoE
+    models' at 32) and 6 decode steps, within rtol/atol 1e-4."""
+    cfg = get_config(arch, smoke=True)
+    if d_head is not None:
+        cfg = dataclasses.replace(cfg, d_head=d_head)
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 64)))
+    want = forward(params, {"tokens": toks}, cfg)
+    gparams = _to(params, cuda)
+    n_attn = sum(b in ("attn", "local_attn") for b, _ in cfg.layer_types())
+    before = ops.launch_counts()["flash_attention_float32"]
+    got = forward(gparams, {"tokens": toks.to(cuda)}, cfg)
+    assert ops.launch_counts()["flash_attention_float32"] == before + n_attn
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+    caches = {"cpu": init_cache(cfg, 2, 16, device="cpu"), "cuda": init_cache(cfg, 2, 16,
+                                                                            device=cuda)}
+    for t in range(6):
+        out = {}
+        for dev, p in (("cpu", params), ("cuda", gparams)):
+            out[dev], caches[dev] = decode_step(p, caches[dev],
+                                                {"tokens": toks[:, t:t + 1].to(dev)}, t, cfg)
+        np.testing.assert_allclose(out["cuda"].cpu().numpy(), out["cpu"].numpy(),
+                                   rtol=1e-4, atol=1e-4)
 
 
 def _to(tree, dev):

@@ -186,7 +186,9 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
     assert t_ops.launch_counts() == {"dequant_matmul": 0, "dequant_matmul_int4": 0,
                                      "quantized_l2": 0, "flash_attention": 0,
                                      "flash_attention_bfloat16": 0,
-                                     "flash_attention_float32": 0}
+                                     "flash_attention_float32": 0,
+                                     "flash_attention_bfloat16_dh256": 0,
+                                     "flash_attention_float32_dh256": 0}
 
 
 # The decode path's (K, N) at M = 4: q/o, k/v, gate/up, down, LM head.

@@ -42,7 +42,6 @@ from repro_torch.models import (
 
 DENSE = ["internlm2-1.8b", "qwen3-8b", "glm4-9b", "deepseek-67b", "llava-next-34b",
          "hubert-xlarge"]
-OTHER = [a for a in list_archs() if a not in DENSE]
 F32 = dict(rtol=1e-4, atol=2e-5)   # the reference's attention tolerance
 
 
@@ -68,6 +67,10 @@ def _qkv(rng, b, sq, sk, h, kv, dh):
     (1, 37, 37, 4, 2, 64, False, 0),      # ragged, not block aligned
     (2, 50, 100, 8, 4, 32, False, 0),
     (1, 100, 50, 4, 4, 64, False, 0),     # q longer than k
+    (1, 128, 128, 4, 1, 256, True, 32),   # dh 256 (recurrentgemma): MQA + window
+    (2, 64, 64, 4, 2, 256, True, 0),      # dh 256: GQA, causal
+    (1, 37, 50, 4, 4, 256, False, 0),     # dh 256: keys padded to the block
+    (1, 96, 96, 8, 1, 256, True, 16),     # dh 256: MQA, a window shorter than a block
 ])
 def test_flash_attention_plain_matches_reference_and_pallas(b, sq, sk, h, kv, dh, causal, window):
     rng = np.random.default_rng(sq * 7 + sk + h + dh)
@@ -249,15 +252,19 @@ def test_dense_smoke_model_matches_reference_bf16():
 
 
 def test_init_params_has_the_reference_tree():
-    for arch in DENSE:
-        cfg = get_config(arch, smoke=True)
-        ref_shapes = jax.tree.map(lambda s: (tuple(s.shape), str(s.dtype)),
-                                  jax.eval_shape(lambda k, c=r_get_config(arch, smoke=True):
-                                                 r_init_params(c, k), jax.random.PRNGKey(0)))
-        got = init_params(cfg, seed=1, device="cpu")
-        got_shapes = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).split(".")[1]),
-                                  got)
-        assert got_shapes == ref_shapes, arch
+    """All ten architectures: the reference's keys, shapes and dtypes
+    (float32 ``lam``, ``u`` and MoE routers inside bfloat16 trees)."""
+    for arch in list_archs():
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(get_config(arch, smoke=True), param_dtype=dtype)
+            r_cfg = dataclasses.replace(r_get_config(arch, smoke=True), param_dtype=dtype)
+            ref_shapes = jax.tree.map(lambda s: (tuple(s.shape), str(s.dtype)),
+                                      jax.eval_shape(lambda k, c=r_cfg: r_init_params(c, k),
+                                                     jax.random.PRNGKey(0)))
+            got = init_params(cfg, seed=1, device="cpu")
+            got_shapes = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).split(".")[1]),
+                                      got)
+            assert got_shapes == ref_shapes, (arch, dtype)
 
 
 def test_param_counts_match_published():
@@ -281,14 +288,6 @@ def test_param_counts_match_published():
             assert dataclasses.asdict(cfg) == dataclasses.asdict(r_cfg)
             assert (cfg.n_params, cfg.n_active_params) == (r_cfg.n_params,
                                                            r_cfg.n_active_params)
-
-
-@pytest.mark.parametrize("arch", OTHER)
-def test_non_dense_kinds_are_not_ported_yet(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue (A4, the recurrent blocks|A5, MoE)"):
-        init_params(cfg, device="cpu")
 
 
 def test_entry_points_default_to_the_card():
