@@ -165,23 +165,32 @@ class CheckpointManager:
         self.wait()
         return self._manifest["latest"]
 
-    def restore(self, step: int | None = None, bits: int | None = None):
+    def restore(self, step: int | None = None, bits: int | None = None, *,
+                params_only: bool = False):
         """Returns (step, {"params": tree, "opt": tree | None}) as trees of
-        tensors on the manager's device, each in its saved dtype."""
+        tensors on the manager's device, each in its saved dtype. With
+        ``params_only`` the optimizer state stays in the store (``opt`` is
+        None): a server needs only the parameters, and a training
+        checkpoint's float32 moments are twice their number."""
         self.wait()
         step = self._manifest["latest"] if step is None else step
         if step is None:
             return None, None
         lm = self.engine.load_model(f"ckpt-{step}", bits=bits)
         arch = lm.architecture
+
+        def keep(name: str) -> bool:
+            return not params_only or name.startswith("params" + SEP)
+
         flat = {}
-        for name in lm.tensor_names():
+        for name in filter(keep, lm.tensor_names()):
             # float32 from the store, cast by torch (bfloat16 needs no numpy
             # extension type).
             dt = getattr(torch, arch["dtypes"].get(name, "float32"))
             flat[name] = torch.from_numpy(lm.tensor(name)).to(self.device, dtype=dt)
         for key, val in arch.get("ints", {}).items():
-            flat[key] = torch.tensor(val, dtype=torch.int32, device=self.device)
+            if keep(key):
+                flat[key] = torch.tensor(val, dtype=torch.int32, device=self.device)
         lm.close()
         nested = _fix_lists(_unflatten(flat))
         return step, {"params": nested.get("params"), "opt": nested.get("opt")}

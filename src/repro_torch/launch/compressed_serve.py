@@ -20,25 +20,55 @@ loop keeps its KV cache on the provider's device and does attention, RoPE,
 RMSNorm and SiLU in plain PyTorch with the reference's float types
 (float32, with attention scores and probabilities in float64).
 
-This is the store-backed half of the reference module; its host-quantized
-half needs the model stack and is not ported yet.
+**Host-quantized path.** :func:`quantize_params` converts a model-stack
+parameter tree (``repro_torch.models``) to the storage format from scratch
+on the host (int8 base codes, an int4 delta packed two rows to a byte,
+five float32 scalars per leaf), with the reference's bytes;
+:func:`quantized_to_device` places it on a device, and
+:func:`make_compressed_serve_step` serves it by reconstructing every leaf
+in plain PyTorch (:func:`dequantize_leaf`, the reference's
+``dequantize_leaf_jnp``, which XLA fuses into the consuming matmul) before
+``decode_step``. :func:`compressed_param_specs` gives the same tree's
+stand-ins on the ``meta`` device.
+
+One difference from the reference, on purpose: :func:`_quantizable` counts
+bfloat16 and float16 leaves as floating. The reference's
+``np.issubdtype(dtype, np.floating)`` is False for numpy's ``bfloat16``
+extension type, so its ``quantize_params`` leaves every leaf of a bfloat16
+tree raw; the port quantizes such a leaf from its exact float32 value.
+On float32 trees the two packages give the same bytes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from ..core.quantize import dequantize_linear, extract_msb, quantize_delta, quantize_linear
 from ..kernels.ops import resolve_device
+from ..models import decode_step
+from ..models.config import ModelConfig
+from ..models.transformer import _dtype
+from ..tree import tree_leaves, tree_map
+from .specs import _spec, model_specs
 
 __all__ = [
     "DecoderSpec", "MaterializedProvider", "decoder_architecture",
     "greedy_decode", "init_decoder_tensors", "save_decoder",
-    "spec_from_architecture", "tensors_from_reference",
+    "spec_from_architecture", "tensors_from_reference", "quantize_params",
+    "quantize_leaf", "quantized_to_device", "dequantize_leaf",
+    "make_compressed_serve_step", "compressed_param_specs",
 ]
+
+# Leaves smaller than this stay raw (norm vectors, biases). Both are read
+# at call time, so a caller (or a test) may change them.
+MIN_QUANT_SIZE = 65_536
+DELTA_BITS = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,3 +306,158 @@ def greedy_decode(provider, spec: DecoderSpec, prompt, steps: int,
     if return_logits:
         return tokens, torch.stack(logits_trace, dim=1)
     return tokens
+
+
+# --------------------------------------------------------------------------
+# Host-quantized path: storage format built from scratch
+# --------------------------------------------------------------------------
+
+def _quantizable(leaf: torch.Tensor) -> bool:
+    """A floating leaf (bfloat16 and float16 included) of two or more dims,
+    at least ``MIN_QUANT_SIZE`` elements, with an even dim 0 (the delta is
+    packed two rows of dim 0 to a byte)."""
+    return (leaf.is_floating_point() and leaf.ndim >= 2 and leaf.numel() >= MIN_QUANT_SIZE
+            and leaf.shape[0] % 2 == 0)
+
+
+def _is_q(node) -> bool:
+    """A storage-format leaf of a quantized tree (itself a dict)."""
+    return isinstance(node, dict) and ("raw" in node or "base" in node)
+
+
+def _map_quantized(fn, qtree):
+    """``fn`` over the storage-format leaves of ``qtree``. ``tree.tree_map``
+    would descend into them: they are dicts too."""
+    if _is_q(qtree):
+        return fn(qtree)
+    if isinstance(qtree, dict):
+        return {k: _map_quantized(fn, v) for k, v in qtree.items()}
+    return [_map_quantized(fn, v) for v in qtree]
+
+
+def quantize_leaf(arr) -> dict:
+    """Host-side: tensor → int8 base + packed int4 delta (storage format).
+
+    ``arr`` is a numpy array or a tensor on any device; a bfloat16 or
+    float16 tensor is quantized from its exact float32 value. Returns numpy
+    arrays and float32 scalars, as the reference's ``quantize_leaf``: the
+    int4 delta of rows 2k and 2k + 1 of dim 0 shares a byte, row 2k in the
+    low nibble.
+    """
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().to("cpu", torch.float32).numpy()
+    flat = np.asarray(arr, np.float64).ravel()
+    base_q, base_meta = quantize_linear(flat, nbit=8)
+    base = dequantize_linear(base_q, base_meta)
+    delta = flat - base
+    dq, dmeta = quantize_delta(delta, p=2.0 ** -24)
+    dq4, dmeta4 = extract_msb(dq, dmeta, DELTA_BITS)
+    if dmeta4.nbit < DELTA_BITS:  # pad code space so packing is uniform
+        dq4 = dq4 << (DELTA_BITS - dmeta4.nbit)
+        dmeta4 = type(dmeta4)(scale=dmeta4.scale / (1 << (DELTA_BITS - dmeta4.nbit)),
+                              zero_point=dmeta4.zero_point << (DELTA_BITS - dmeta4.nbit),
+                              nbit=DELTA_BITS, mid=dmeta4.mid)
+    v = dq4.astype(np.uint8).reshape(arr.shape[0], -1)
+    packed = (v[0::2] | (v[1::2] << 4)).astype(np.uint8)  # pack along dim 0
+    return {
+        "base": (base_q.astype(np.int16) - 128).astype(np.int8).reshape(arr.shape),
+        "packed": packed,
+        "bs": np.float32(base_meta.scale),
+        "bz": np.float32(base_meta.zero_point - 128),
+        "bmid": np.float32(base_meta.mid),
+        "ds": np.float32(dmeta4.scale),
+        "dz": np.float32(dmeta4.zero_point),
+    }
+
+
+def quantize_params(params) -> dict:
+    """Whole-tree storage-format conversion (host side, done once).
+
+    ``params`` is the model stack's tree of tensors, on any device. Each
+    quantizable leaf becomes :func:`quantize_leaf`'s dict, every other leaf
+    ``{"raw": tensor}`` with the tensor copied to the host. The leaves are
+    converted in threads, one a host core (numpy releases the interpreter
+    lock on whole-array operations): each leaf's dict is what
+    :func:`quantize_leaf` gives it alone, and the host holds the float64
+    working copies of that many leaves at once.
+    """
+    def conv(leaf: torch.Tensor) -> dict:
+        if _quantizable(leaf):
+            return quantize_leaf(leaf)
+        return {"raw": leaf.detach().cpu()}
+
+    leaves = tree_leaves(params)
+    with ThreadPoolExecutor(max_workers=max(1, min(len(leaves), os.cpu_count() or 1))) as pool:
+        done = iter(list(pool.map(conv, leaves)))
+    return tree_map(lambda _: next(done), params)
+
+
+def quantized_to_device(qparams, device="cuda"):
+    """A :func:`quantize_params` tree as tensors on ``device``: the codes
+    as int8 / uint8 tensors, the scalars as 0-d float32 tensors."""
+    dev = resolve_device(device)
+
+    def place(q: dict) -> dict:
+        return {k: (v.to(dev) if isinstance(v, torch.Tensor)
+                    else torch.from_numpy(np.asarray(v)).to(dev))
+                for k, v in q.items()}
+
+    return _map_quantized(place, qparams)
+
+
+def dequantize_leaf(q: dict, dtype=torch.bfloat16) -> torch.Tensor:
+    """One storage-format leaf (tensors, :func:`quantized_to_device`) back
+    to a tensor of ``dtype``; a raw leaf as it is.
+
+    The reference's ``dequantize_leaf_jnp``, operation for operation: the
+    base ``(base - bz) * bs``, the nibbles stacked low / high along a new
+    dim 1 and reshaped to ``(2 * rows, -1)``, the delta
+    ``(nibble - dz + 0.5) * ds``, their sum in float32, then the cast.
+    Each step is its own correctly rounded float32 operation (no fused
+    multiply-add), so the card and the CPU give the same bits.
+    """
+    if "raw" in q:
+        return q["raw"]
+    base = (q["base"].to(torch.float32) - q["bz"]) * q["bs"]
+    packed = q["packed"]
+    low = (packed & 0xF).to(torch.float32)
+    high = (packed >> 4).to(torch.float32)
+    d0_half = packed.shape[0]
+    nibbles = torch.stack([low, high], dim=1).reshape(2 * d0_half, -1)
+    delta = (nibbles - q["dz"] + 0.5) * q["ds"]
+    return (base + delta.reshape(base.shape)).to(dtype)
+
+
+def make_compressed_serve_step(cfg: ModelConfig):
+    """serve_step over storage-format weights (greedy decode one token).
+
+    Every leaf of the placed tree is reconstructed in ``cfg.compute_dtype``
+    on its device at each step, then one ``decode_step``: on the card it
+    all runs there.
+    """
+    dtype = _dtype(cfg.compute_dtype)
+
+    @torch.inference_mode()
+    def step(qparams, cache, batch, pos):
+        params = _map_quantized(lambda q: dequantize_leaf(q, dtype), qparams)
+        logits, new_cache = decode_step(params, cache, batch, pos, cfg)
+        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        return next_tok, new_cache
+
+    return step
+
+
+def compressed_param_specs(cfg: ModelConfig):
+    """The storage-format tree's stand-ins on the ``meta`` device, leaf
+    for leaf what :func:`quantize_params` returns for ``cfg``'s parameters."""
+    def conv(leaf: torch.Tensor) -> dict:
+        if _quantizable(leaf):
+            n_cols = leaf.numel() // leaf.shape[0]
+            return {
+                "base": _spec(leaf.shape, torch.int8),
+                "packed": _spec((leaf.shape[0] // 2, n_cols), torch.uint8),
+                **{k: _spec((), torch.float32) for k in ("bs", "bz", "bmid", "ds", "dz")},
+            }
+        return {"raw": leaf}
+
+    return tree_map(conv, model_specs(cfg))

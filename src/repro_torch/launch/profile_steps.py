@@ -35,7 +35,9 @@ the ``flash_attn`` kernels' share of the busy time
 ``--window-probe SECONDS`` counts how often a short trace of the kind
 ``kernel_ms`` takes holds no kernel with an unpadded window, and whether
 the padded window (:func:`_active_kernels`) then holds every kernel
-(:func:`window_probe`).
+(:func:`window_probe`). Where the trace comes back without the timed
+kernels even so, :func:`queued_event_ms` times the call with CUDA events
+instead, behind a spin kernel that hides the host's issue time.
 
 ``--smoke --device cpu`` runs the same windows on the CPU at the config's
 SMOKE size and a few tokens, as a rehearsal of the script; device shares
@@ -70,8 +72,8 @@ from ..kernels import ops
 from ..models import init_cache, init_params
 from .steps import make_prefill_step, make_serve_step
 
-__all__ = ["kernel_ms", "main", "summarize", "trace_compressed_decode", "trace_prefill",
-           "trace_train_step", "window_probe"]
+__all__ = ["kernel_ms", "main", "queued_event_ms", "summarize", "trace_compressed_decode",
+           "trace_prefill", "trace_train_step", "window_probe"]
 
 ARCH, SEED = "internlm2-1.8b", 0
 # The record_function ranges of models/recurrent.py: the RG-LRU scan and the
@@ -81,6 +83,9 @@ SCAN_RANGES = ("rglru_scan", "rwkv6_chunks")
 GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
 # Idle host seconds on each side of a kernel_ms trace's runs (_active_kernels).
 WINDOW_PAD_S = 0.05
+# queued_event_ms: the spin kernel's calibration length (cycles) and the
+# ms it runs beyond twice the host's issue time of a round.
+SPIN_CAL_CYCLES, SPIN_MARGIN_MS = 10_000_000, 1.0
 # (batch, prefill length, prompt length, serve steps): published, and --smoke.
 SIZES = {False: (4, 2048, 8, 16), True: (2, 16, 3, 2)}
 # --compressed: internlm2-1.8b's decode widths at 2 layers (chip_smoke.py's
@@ -226,6 +231,42 @@ def kernel_ms(fn, reps: int, flush, match: str | None = None, warmup: int = 5,
     names = Counter(name[:60] for _, name in mine)
     raise RuntimeError(f"the trace holds {rounds} of {reps} flushes and {len(mine)} kernels "
                        f"of the timed call: {dict(names)}")
+
+
+def queued_event_ms(fn, reps: int, flush, warmup: int = 3) -> float:
+    """Mean device ms a call of ``fn`` from CUDA events, host issue left
+    out without a trace: each round (``flush()``, an event, ``fn()``, an
+    event) is queued behind a spin kernel (``torch.cuda._sleep``) that
+    lasts twice the host's issue time of a round plus ``SPIN_MARGIN_MS``,
+    so the card runs the round's kernels back to back. Unlike
+    :func:`kernel_ms` it times every kernel of ``fn``, and the gaps between
+    them on the card; a ``fn`` that waits on the card is timed with its
+    waits. Needs a CUDA card."""
+    for _ in range(warmup):
+        flush()
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    flush()
+    fn()
+    issue_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SPIN_CAL_CYCLES)
+    end.record()
+    end.synchronize()
+    spin = int(SPIN_CAL_CYCLES / start.elapsed_time(end) * (2 * issue_ms + SPIN_MARGIN_MS))
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(spin)
+        flush()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.mean(times))
 
 
 def window_probe(seconds: float) -> dict:

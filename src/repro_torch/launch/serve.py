@@ -35,7 +35,9 @@ class ModelServer:
 
     # ------------------------------------------------------------ model mgmt
     def load(self, step: int | None = None) -> int:
-        """Load a checkpointed model (flexible-bit) into the server cache."""
+        """Load a checkpointed model (flexible-bit) into the server cache:
+        its parameters only; a training checkpoint's optimizer state stays
+        in the store."""
         if step is None:
             step = self.mgr.latest_step()
             if step is None:
@@ -43,7 +45,7 @@ class ModelServer:
         if step in self._models:
             self._models.move_to_end(step)
             return step
-        step, state = self.mgr.restore(step, bits=self.bits)
+        step, state = self.mgr.restore(step, bits=self.bits, params_only=True)
         self._models[step] = state["params"]
         while len(self._models) > self.max_models:  # LRU eviction
             self._models.popitem(last=False)

@@ -10,12 +10,14 @@ from .config import SHAPES, ModelConfig, ShapeConfig
 from .layers import AttentionBlock, GeluMLP, MoE, SwiGLU
 from .recurrent import RGLRUBlock, RWKV6ChannelMix, RWKV6TimeMix
 from .transformer import (
+    cache_specs,
     decode_step,
     forward,
     init_cache,
     init_params,
     loss_fn,
     opt_from_reference,
+    param_specs,
     params_from_reference,
 )
 
@@ -30,11 +32,13 @@ __all__ = [
     "RWKV6TimeMix",
     "ShapeConfig",
     "SwiGLU",
+    "cache_specs",
     "decode_step",
     "forward",
     "init_cache",
     "init_params",
     "loss_fn",
     "opt_from_reference",
+    "param_specs",
     "params_from_reference",
 ]

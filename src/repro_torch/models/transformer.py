@@ -37,8 +37,12 @@ from .recurrent import RGLRUBlock, RWKV6ChannelMix, RWKV6TimeMix
 
 Params = dict[str, Any]
 
-__all__ = ["decode_step", "forward", "init_cache", "init_params", "loss_fn",
-           "opt_from_reference", "params_from_reference"]
+__all__ = ["cache_specs", "decode_step", "forward", "init_cache", "init_params", "loss_fn",
+           "opt_from_reference", "param_specs", "params_from_reference"]
+
+# Where the shape stand-ins live: tensors with a shape and a dtype and no
+# storage.
+_META = torch.device("meta")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -116,9 +120,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     ``init_params``; the numbers differ (``jax.random`` is not torch's).
     """
     dev = resolve_device(device)
-    dtype = _dtype(cfg.param_dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    return _build_params(cfg, gen, dev)
+
+
+def _build_params(cfg: ModelConfig, gen, dev: torch.device) -> Params:
+    dtype = _dtype(cfg.param_dtype)
     period_blocks = _blocks_for_period(cfg)
     tail_blocks = _blocks_for_tail(cfg)
     d = cfg.d_model
@@ -134,6 +142,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     if not cfg.tie_embeddings:
         params["lm_head"] = _normal(gen, (d, cfg.vocab_size), d ** -0.5, dtype, dev)
     return params
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The parameter tree's stand-ins: :func:`init_params`'s leaves, shapes
+    and dtypes as tensors on the ``meta`` device (nothing is allocated, so
+    the largest config costs nothing). The reference's ``param_specs``
+    gives the same as ``jax.ShapeDtypeStruct``s."""
+    return _build_params(cfg, None, _META)
 
 
 def params_from_reference(tree, device="cuda"):
@@ -261,7 +277,10 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """Decode cache tree, stacked over periods like the params: a layer's
     K/V or recurrent state, plus the RWKV channel mix's token shift."""
-    dev = resolve_device(device)
+    return _build_cache(cfg, batch, max_len, resolve_device(device))
+
+
+def _build_cache(cfg: ModelConfig, batch: int, max_len: int, dev: torch.device):
     dtype = _dtype(cfg.compute_dtype)
 
     def one_layer(sb, mb, lead=()):
@@ -281,6 +300,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     if tail_blocks:
         cache["tail"] = [one_layer(sb, mb) for sb, mb in tail_blocks]
     return cache
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+    """:func:`init_cache`'s tree as tensors on the ``meta`` device."""
+    return _build_cache(cfg, batch, max_len, _META)
 
 
 def _decode_layer(cfg, seq_blk, mix_blk, p, x, cache, pos):

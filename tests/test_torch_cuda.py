@@ -28,7 +28,8 @@ a ``Trainer`` that checkpoints and resumes on the card; for the store's
 front door, an HTTP upload whose probes launch ``quantized_l2`` from the
 server's handler thread, a delete and vacuum that compact a CUDA mirror,
 and concurrent downloads during a save; for the model zoo, the recurrent
-and MoE smoke models' forward and decode against the CPU.
+and MoE smoke models' forward and decode against the CPU; and the
+event-timed fall-back of the script's device-only times against the trace.
 """
 
 import dataclasses
@@ -838,3 +839,30 @@ def test_concurrent_downloads_during_a_save_on_the_card(cuda, tmp_path):
         client.close()
         server.stop()
         eng.close()
+
+
+@pytest.mark.parametrize("kind", ["one matmul", "a chain of elementwise kernels"])
+def test_queued_event_ms_agrees_with_the_trace(cuda, kind):
+    """``profile_steps.queued_event_ms``, the fall-back of the script's
+    device-only times, against ``kernel_ms`` on the same call: within a
+    quarter of the traced time plus 50 µs (the events also hold the gaps
+    between kernels on the card)."""
+    from repro_torch.launch.profile_steps import kernel_ms, queued_event_ms
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    flush = torch.zeros(32 << 20, dtype=torch.float64, device=cuda)
+    if kind == "one matmul":
+        a = torch.randn(4096, 4096, device=cuda, dtype=torch.bfloat16, generator=gen)
+
+        def fn():
+            return a @ a
+    else:
+        x = torch.randn(1 << 22, device=cuda, generator=gen)
+
+        def fn():
+            for _ in range(50):
+                x.mul_(1.0001)
+
+    traced = kernel_ms(fn, 10, lambda: flush.add_(1.0))
+    timed = queued_event_ms(fn, 10, lambda: flush.add_(1.0))
+    assert abs(timed - traced) <= 0.25 * traced + 0.05, (timed, traced)

@@ -3,7 +3,9 @@
 A fresh interpreter imports every ``repro_torch`` module, runs the CPU
 slices end to end (save, dedup, load at bits 8 and 4, decode on compressed
 weights; a dense model's prefill, a checkpoint and ``ModelServer.generate``
-from it; a ``Trainer`` that checkpoints and resumes; a ``ModelStoreServer``
+from it; a ``Trainer`` that checkpoints and resumes; a host-quantized
+compressed serve step, full-size shape stand-ins on the ``meta`` device
+and a world-size-1 ``cross_pod_sync`` over gloo; a ``ModelStoreServer``
 over a ``NeurStore`` that takes an upload through ``StoreClient`` and serves
 it back at every width) and then checks
 ``sys.modules``. The same holds for
@@ -69,6 +71,31 @@ with tempfile.TemporaryDirectory() as root:
     assert rep.end_step == 2 and all(np.isfinite(rep.losses))
     rep = Trainer(cfg, root, device="cpu").fit(steps=1, batch=2, seq=32)
     assert rep.resumed and rep.start_step == 2
+
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.distributed.compression import cross_pod_sync, init_error_state
+from repro_torch.launch import compressed_serve as cs
+from repro_torch.launch.specs import input_specs
+from repro_torch.models import SHAPES, init_cache
+
+cs.MIN_QUANT_SIZE = 1024
+qparams = cs.quantized_to_device(cs.quantize_params(params), "cpu")
+assert "base" in qparams["embed"] and "raw" in qparams["final_norm"]
+cache = init_cache(cfg, 2, 8, device="cpu")
+tok, cache = cs.make_compressed_serve_step(cfg)(
+    qparams, cache, {"tokens": torch.zeros((2, 1), dtype=torch.int64)}, 0)
+assert tuple(tok.shape) == (2,)
+specs = input_specs(get_config("arctic-480b"), SHAPES["decode_32k"])
+assert specs["params"]["embed"].device.type == "meta"
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+try:
+    mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("pod",))
+    grads = {"w": torch.linspace(-1, 1, 16).reshape(4, 4)}
+    synced, errs = cross_pod_sync(grads, init_error_state(grads), mesh)
+    assert torch.allclose(synced["w"], grads["w"], atol=1 / 254)
+finally:
+    dist.destroy_process_group()
 
 from repro_torch.server import ModelStoreServer, QuotaManager, StoreClient
 from repro_torch.store import NeurStore, SaveRequest

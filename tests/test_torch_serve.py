@@ -151,6 +151,35 @@ def test_restore_of_an_empty_store_and_tail_lists(tmp_path):
     assert int(got["params"]["n"]) == 7
 
 
+def test_params_only_restore_leaves_the_optimizer_in_the_store(tmp_path):
+    """What ``ModelServer.load`` restores from a training checkpoint: the
+    same parameters as a whole restore, and no optimizer tensor is read
+    from the store."""
+    from repro_torch.optim import adamw_init
+
+    mgr = CheckpointManager(str(tmp_path), device="cpu")
+    params = params_from_reference(_ref_params(), "cpu")
+    mgr.save(4, params, adamw_init(params))
+    _, whole = mgr.restore(4, bits=8)
+    load_model, read = mgr.engine.load_model, []
+
+    def spied(name, **kw):
+        lm = load_model(name, **kw)
+        tensor = lm.tensor
+        lm.tensor = lambda key: read.append(key) or tensor(key)
+        return lm
+
+    mgr.engine.load_model = spied
+    step, state = mgr.restore(4, bits=8, params_only=True)
+    assert step == 4 and state["opt"] is None and read
+    assert all(key.startswith("params//") for key in read)
+    got, want = jax.tree.leaves(state["params"]), jax.tree.leaves(whole["params"])
+    assert len(got) == len(want) == len(jax.tree.leaves(params))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(whole["opt"]["step"]) == 0
+
+
 # ------------------------------------------------------------------- server
 def _reference_greedy(params, prompts, steps):
     """The reference's decode loop: tokens and per-step logits."""
