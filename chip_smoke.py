@@ -142,6 +142,23 @@ in a row is taken with CUDA events behind a spin kernel instead
    and the reference test's 50-step 4-bit error-feedback loop on one real
    leaf within its atol (``EF_ATOL``); the sync's ms and bytes printed.
 
+12. The pod-mesh layer (run after phase 11), over a world-size-1 NCCL
+   group on a (1, 1) ("data", "model") and a (1, 1, 1) ("pod", "data",
+   "model") ``DeviceMesh``, under the ``"tp"`` and ``"dp"`` rule tables:
+   (a) ``launch.shardings.sharded`` around ``make_train_step`` at
+   internlm2-1.8b's widths cut to ``POD_LAYERS`` layers (bf16, remat),
+   params and AdamW moments as DTensors placed by the spec trees, 3 steps
+   on 4 x 2048 ``SyntheticLM`` batches: each step's loss, params and
+   moments bit-identical to the unsharded step's (4 bf16
+   ``flash_attention`` launches a step, counted), ms a step of both; (b)
+   the serving path at glm4-9b's widths cut to 2 layers: a sharded 4 x 512
+   ``make_prefill_step`` (its first token) and 16 greedy sharded
+   ``make_serve_step`` tokens over a cache placed by ``cache_specs_tree``,
+   the tokens equal and the final cache bit-identical to the unsharded
+   path's; (c) ``launch.train.restore_sharded`` of a smoke-size checkpoint
+   the phase writes, every placed leaf bit-identical to the unsharded
+   restore. Its seconds beside ``POD_BUDGET_S``.
+
 The run prints phase 10's seconds beside its budget (``ZOO_BUDGET_S``) and
 its own beside ``SCRIPT_BUDGET_S``.
 Each path's launch counts are set to 0 just before it and read just after;
@@ -270,6 +287,17 @@ HOSTQ_BINS = 1.5 * (1 + 2.0 ** -7)
 HOSTQ_GRAD_BATCH, HOSTQ_GRAD_LEN = 2, 512
 EF_STEPS, EF_NBIT, EF_ATOL = 50, 4, 2e-5
 EF_LEAF = "periods//slot0//seq//wq"
+# Phase 12 (the pod-mesh layer): the sharded train step at internlm2-1.8b's
+# widths and the sharded serve path at glm4-9b's (d_model 4096, 32 heads on
+# 2 KV heads of 128, d_ff 13,696, vocab 151,552), both cut to 2 layers, bf16,
+# on meshes of one rank over a world-size-1 NCCL group: every gather and
+# reduce is then the identity, so each sharded step must give its unsharded
+# step's bits. The serve path: a 4 x 512 prefill (its first token), then
+# 16 greedy serve steps at batch 4. Each mesh under each rule table.
+POD_LAYERS, POD_TRAIN_STEPS, POD_PREFILL = 2, 3, (4, 512)
+POD_MESHES = (((1, 1), ("data", "model")), ((1, 1, 1), ("pod", "data", "model")))
+POD_PROFILES = ("tp", "dp")
+POD_BUDGET_S = 45.0
 # Phase 10 (the model zoo): (batch, prompt length) of each prefill, and
 # arctic-480b's depth: its 35 layers (477 B parameters) cannot be held on
 # one card; one layer's 128 experts and dense residual are 14.07 B (28.1 GB
@@ -2748,6 +2776,221 @@ def phase_host_quantized(dev_info: dict) -> dict[str, int]:
     return counts
 
 
+def _tree_gap(got, want) -> tuple[bool, float]:
+    """(bit-identical, max |got - want| in float64) over two trees of
+    tensors, DTensors gathered whole."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_leaves
+
+    same, gap = True, 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        g = g.full_tensor() if isinstance(g, DTensor) else g
+        if g.dtype != w.dtype or g.shape != w.shape:
+            return False, float("inf")
+        if not torch.equal(g, w):
+            same = False
+            gap = max(gap, float((g.double() - w.double()).abs().max()))
+    return same, gap
+
+
+def phase_pod_mesh() -> dict[str, int]:
+    """Phase 12: the sharded train and serve steps and the elastic restore
+    on DTensor state, each against its unsharded counterpart."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_train_step
+    from repro_torch.launch.train import restore_sharded
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    tcfg = dataclasses.replace(_internlm2(), n_layers=POD_LAYERS)
+    scfg = dataclasses.replace(get_config("glm4-9b"), n_layers=POD_LAYERS)
+    log(f"pod mesh: sharded train step at {tcfg.name} widths and serve path at {scfg.name} "
+        f"widths (d_model {scfg.d_model}, {scfg.n_heads} heads on {scfg.n_kv_heads} KV heads "
+        f"of {scfg.d_head}, d_ff {scfg.d_ff}, vocab {scfg.vocab_size}), depth cut to "
+        f"{POD_LAYERS} layers, {tcfg.param_dtype}; meshes {[m for m, _ in POD_MESHES]} under "
+        f"{POD_PROFILES} over a world-size-1 NCCL group")
+    data = SyntheticLM(tcfg.vocab_size, seed=SEED + 12)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                data.batch(i, TRAIN_BATCH, TRAIN_LEN).items()} for i in range(POD_TRAIN_STEPS)]
+    params0 = init_params(tcfg, SEED + 12, device=dev)
+
+    def train_run(step, params, opt, want=None):
+        """POD_TRAIN_STEPS steps: the (loss, params, opt) of each (kept when
+        ``want`` is None, else each held to ``want``'s: its gaps), the ms a
+        step and the bf16 attention launches."""
+        kept, gaps, ms, launches = [], [], [], 0
+        for i, b in enumerate(batches):
+            before = ops.launch_counts()["flash_attention_bfloat16"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches += ops.launch_counts()["flash_attention_bfloat16"] - before
+            if want is None:
+                kept.append([m["loss"], params, opt])
+            else:
+                gaps.append(_tree_gap([m["loss"], params, opt], want[i]))
+        return kept, gaps, ms, launches
+
+    # The unsharded path, twice: the second run says whether the step gives
+    # the same bits twice, which bit-identity below presumes.
+    plain = make_train_step(tcfg, 1, lr=TRAIN_LR)
+    want, _, plain_ms, _ = train_run(plain, params0, adamw_init(params0))
+    _, repeat, _, _ = train_run(plain, params0, adamw_init(params0), want)
+    repeat_same = all(same for same, _ in repeat)
+    repeat_gap = max(gap for _, gap in repeat)
+    log(f"pod mesh (a): unsharded train steps {[round(t, 3) for t in plain_ms]} ms, losses "
+        f"{[round(float(w[0]), 6) for w in want]}; a second unsharded run bit-identical "
+        f"{repeat_same} (max gap {repeat_gap:.3e})")
+
+    sparams = init_params(scfg, SEED + 12, device=dev)
+    prompts = torch.from_numpy(np.random.default_rng(SEED + 12).integers(
+        0, scfg.vocab_size, POD_PREFILL)).to(dev)
+    b = POD_PREFILL[0]
+
+    def serve_run(prefill, serve, params, cache):
+        """The prefill's first token, then STEPS greedy tokens, each fed
+        back: ((B, STEPS + 1) tokens, the final cache, prefill ms, median
+        ms a serve step)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok = torch.argmax(prefill(params, {"tokens": prompts}), dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        toks, times = [tok], []
+        for pos in range(STEPS):
+            t0 = time.perf_counter()
+            tok, cache = serve(params, cache, {"tokens": tok[:, None].long()}, pos)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            toks.append(tok)
+        return torch.stack(toks, dim=1), cache, prefill_ms, float(np.median(times))
+
+    # Unsharded, twice: the second run's times are warm, and its bits say
+    # whether the path repeats itself.
+    runs = [serve_run(make_prefill_step(scfg), make_serve_step(scfg), sparams,
+                      init_cache(scfg, b, STEPS, device=dev)) for _ in range(2)]
+    want_toks, want_cache = runs[0][:2]
+    plain_prefill_ms, plain_serve_ms = runs[1][2:]
+    serve_repeats = (bool(torch.equal(runs[1][0], want_toks))
+                     and _tree_gap(runs[1][1], want_cache)[0])
+    log(f"pod mesh (b): unsharded prefill {plain_prefill_ms:.6f} ms (first call "
+        f"{runs[0][2]:.6f}), serve step {plain_serve_ms:.6f} ms (median of {STEPS}); a second "
+        f"run's tokens and cache bit-identical {serve_repeats}; tokens {want_toks[:, :4].tolist()}")
+    del runs
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        ops.reset_launch_counts()
+        for shape, names in POD_MESHES:
+            mesh = make_mesh(shape, names)
+            multi_pod = "pod" in names
+            for profile in POD_PROFILES:
+                what = f"{shape} {profile}"
+                # (a) the sharded train step
+                with sh.use_mesh(mesh, multi_pod=multi_pod, profile=profile) as ctx:
+                    p_spec = shd.param_specs_tree(params0, ctx)
+                    o_spec = shd.opt_specs_tree(None, p_spec)
+                    b_spec = shd.batch_specs_tree(batches[0], ctx)
+                    step = shd.sharded(make_train_step(tcfg, 1, lr=TRAIN_LR),
+                                       (p_spec, o_spec, shd.per_batch(b_spec)),
+                                       (p_spec, o_spec, None), ctx)
+                _, gaps, ms, launches = train_run(step, shd.place(params0, p_spec, mesh),
+                                                  shd.place(adamw_init(params0), o_spec, mesh),
+                                                  want)
+                same = all(s for s, _ in gaps)
+                gap = max(g for _, g in gaps)
+                line = (f"pod mesh (a) {what}: sharded train steps "
+                        f"{[round(t, 3) for t in ms]} ms (unsharded "
+                        f"{[round(t, 3) for t in plain_ms]}), {launches} bf16 flash_attention "
+                        f"launches (want "
+                        f"{2 * POD_LAYERS * POD_TRAIN_STEPS}); every step's loss, params and "
+                        f"moments bit-identical to the unsharded step's {same} (max gap {gap:.3e})")
+                # Bit-identity presumes a step that repeats its own bits; if
+                # the unsharded step did not, the sharded one may differ by
+                # as much as the unsharded repeat did.
+                if (launches != 2 * POD_LAYERS * POD_TRAIN_STEPS
+                        or not (same or (not repeat_same and gap <= repeat_gap))):
+                    fail(line)
+                log(line)
+                # (b) the sharded serve path, under the serving rules
+                with sh.use_mesh(mesh, multi_pod=multi_pod, seq_shard=False, serve=True,
+                                 profile=profile) as ctx:
+                    cache = init_cache(scfg, b, STEPS, device=dev)
+                    p_spec = shd.param_specs_tree(sparams, ctx)
+                    c_spec = shd.cache_specs_tree(cache, ctx, scfg.n_kv_heads)
+                    rows = shd.per_batch(shd.batch_specs_tree({"tokens": prompts}, ctx))
+                    prefill = shd.sharded(make_prefill_step(scfg), (p_spec, rows),
+                                          (shd.per_batch(None),), ctx)
+                    serve = shd.sharded(make_serve_step(scfg),
+                                        (p_spec, shd.per_batch(c_spec), rows, None),
+                                        (shd.per_batch(None), shd.per_batch(c_spec)), ctx)
+                before = ops.launch_counts()["flash_attention_bfloat16"]
+                toks, cache, prefill_ms, serve_ms = serve_run(
+                    prefill, serve, shd.place(sparams, p_spec, mesh),
+                    shd.place(cache, c_spec, mesh))
+                launched = ops.launch_counts()["flash_attention_bfloat16"] - before
+                same, gap = _tree_gap(cache, want_cache)
+                line = (f"pod mesh (b) {what}: sharded prefill {prefill_ms:.6f} ms (unsharded "
+                        f"{plain_prefill_ms:.6f}), serve step {serve_ms:.6f} ms (unsharded "
+                        f"{plain_serve_ms:.6f}); {launched} bf16 flash_attention launches (want "
+                        f"{POD_LAYERS}); tokens equal {bool(torch.equal(toks, want_toks))}; final "
+                        f"cache bit-identical {same} (max gap {gap:.3e})")
+                if not (same and torch.equal(toks, want_toks)) or launched != POD_LAYERS:
+                    fail(line)
+                log(line)
+                del cache, prefill, serve, step
+                torch.cuda.empty_cache()
+
+        # (c) the elastic restore of a checkpoint this phase writes
+        with tempfile.TemporaryDirectory() as root:
+            ccfg = get_config("internlm2-1.8b", smoke=True)
+            mgr = CheckpointManager(root, device=dev)
+            t0 = time.perf_counter()
+            mgr.save(12, init_params(ccfg, SEED + 12, device=dev))
+            _, state = mgr.restore(params_only=True)
+            save_s = time.perf_counter() - t0
+            for shape, names in POD_MESHES:
+                mesh = make_mesh(shape, names)
+                t0 = time.perf_counter()
+                with sh.use_mesh(mesh, multi_pod="pod" in names) as ctx:
+                    step_no, placed = restore_sharded(mgr, mesh, ctx)
+                restore_s = time.perf_counter() - t0
+                same, gap = _tree_gap(placed, state["params"])
+                n = len(tree_leaves(placed))
+                line = (f"pod mesh (c) {shape}: restore_sharded of a smoke-size {ccfg.name} "
+                        f"checkpoint (step {step_no}, {n} leaves; saved and restored unsharded in "
+                        f"{save_s:.6f} s) in {restore_s:.6f} s, every placed leaf bit-identical "
+                        f"to the unsharded restore {same} (max gap {gap:.3e})")
+                if step_no != 12 or not same:
+                    fail(line)
+                log(line)
+            mgr.close()
+        counts = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    del params0, sparams, want, want_cache
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"pod mesh phase (12): {phase_s:.3f} s of its {POD_BUDGET_S:.0f} s budget")
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -2792,6 +3035,7 @@ def main() -> int:
     zoo_s = main_path("model zoo", phase_zoo)
     log(f"model zoo phase (10): {zoo_s:.3f} s of its {ZOO_BUDGET_S:.0f} s budget")
     main_path("host-quantized", lambda: phase_host_quantized(dev_info))
+    main_path("pod mesh", phase_pod_mesh)
     main_path("training", lambda: phase_training(dev_info))
     log(f"launches over all main paths: {counts}")
     for name, n in counts.items():

@@ -1,3 +1,6 @@
-"""Distributed runtime: error-feedback gradient compression over
-``torch.distributed`` (the port of the reference's ``repro/distributed``;
-its pod-mesh sharding layer is not ported yet)."""
+"""Distributed runtime over ``torch.distributed`` (the port of the
+reference's ``repro/distributed``): the logical-axis sharding rules and
+their DTensor placements (``sharding``) and error-feedback gradient
+compression (``compression``). Tensor-parallel compute over ``model`` is
+not ported: sharded steps compute on local tensors
+(``launch.shardings.sharded``)."""

@@ -1,0 +1,180 @@
+"""Collective traffic and op counts of a sharded step (the roofline's source).
+
+The port of the reference's ``repro/launch/hlo_stats.py``. The reference
+parses XLA's optimized HLO text; the port has no compiler in between, so
+it records what a step dispatches: :class:`StepRecorder` is a dispatch
+mode that notes every functional collective (``_c10d_functional``: what
+DTensor's ``redistribute`` and ``full_tensor`` issue), each as (kind,
+result bytes on this rank, group size), every aten op by name, and the
+bytes each non-view op reads and writes. :func:`collective_stats` turns the
+records into bytes moved per device under ring algorithms, by the
+reference's rules:
+
+    all-gather          out × (n-1)/n
+    reduce-scatter      out × (n-1)        (ring RS moves (n-1)/n of input)
+    all-reduce          2 × size × (n-1)/n (RS + AG)
+    all-to-all          size × (n-1)/n
+    collective-permute  size
+
+:func:`collective_stats_from_hlo` keeps the reference's HLO-text parser,
+a pure-Python copy, so that both packages can be held to the same text.
+Collectives issued directly through ``torch.distributed`` (not the
+functional ops) are not recorded.
+"""
+
+from __future__ import annotations
+
+import re
+from collections import Counter
+
+from torch.utils._python_dispatch import TorchDispatchMode
+
+__all__ = ["StepRecorder", "collective_stats", "collective_stats_from_hlo",
+           "hlo_op_histogram"]
+
+_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")
+
+_DTYPE_BYTES = {
+    "pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "f16": 2, "bf16": 2,
+    "s32": 4, "u32": 4, "f32": 4, "s64": 8, "u64": 8, "f64": 8,
+    "c64": 8, "c128": 16, "s4": 0.5, "u4": 0.5,
+}
+
+_SHAPE_RE = re.compile(r"(pred|[suf]\d+|bf16|c64|c128)\[([0-9,]*)\]")
+_OP_RE = re.compile(
+    r"^\s*(?:ROOT\s+)?%?[\w.\-]+\s*=\s*(\([^)]*\)|[^=\s]+)\s+"
+    r"(all-reduce|all-gather|reduce-scatter|all-to-all|collective-permute)"
+    r"(?:-start)?\(", re.M)
+_GROUPS_RE = re.compile(r"replica_groups=(\{\{[^}]*\}[^}]*\}|\[[0-9,]+\]<=\[\d+\])")
+
+# The functional collectives, by op name, and the kind each is.
+_FUNCOL_KINDS = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_reduce": "all-reduce",
+    "all_reduce_": "all-reduce",
+    "all_to_all_single": "all-to-all",
+}
+
+
+def _moved(kind: str, size: float, n: int) -> float:
+    """Bytes one device moves for a collective whose result is ``size``
+    bytes on it, over a group of ``n``."""
+    if kind == "all-gather":
+        return size * (n - 1) / max(n, 1)
+    if kind == "reduce-scatter":
+        return size * (n - 1)
+    if kind == "all-reduce":
+        return 2 * size * (n - 1) / max(n, 1)
+    if kind == "all-to-all":
+        return size * (n - 1) / max(n, 1)
+    return size  # collective-permute
+
+
+def _stats(records) -> dict:
+    out = {k: 0.0 for k in _KINDS}
+    out["count"] = 0
+    for kind, size, n in records:
+        out[kind] += _moved(kind, size, n)
+        out["count"] += 1
+    out["total_bytes"] = sum(out[k] for k in _KINDS)
+    return out
+
+
+def collective_stats(records, n_devices: int) -> dict:
+    """Per-device collective bytes, split by op kind, of ``records``:
+    (kind, result bytes on one device, group size or None for all
+    ``n_devices``) as :class:`StepRecorder` notes them."""
+    return _stats((kind, size, n_devices if n is None else n) for kind, size, n in records)
+
+
+def _shape_bytes(type_str: str) -> float:
+    total = 0.0
+    for dt, dims in _SHAPE_RE.findall(type_str):
+        n = 1
+        if dims:
+            for d in dims.split(","):
+                n *= int(d)
+        total += n * _DTYPE_BYTES[dt]
+    return total
+
+
+def _group_size(line: str, default: int) -> int:
+    m = _GROUPS_RE.search(line)
+    if not m:
+        return default
+    g = m.group(1)
+    if g.startswith("{{"):
+        first = g[2:].split("}")[0]
+        return len([x for x in first.split(",") if x.strip() != ""])
+    # iota form: [g0,g1,...]<=[N]; for [G,n]<=[N] the group size is N/G.
+    dims = [int(x) for x in g[1:g.index("]")].split(",")]
+    total = int(g[g.index("<=[") + 3:-1])
+    n_groups = dims[0]
+    return max(total // n_groups, 1) if len(dims) > 1 else dims[0]
+
+
+def collective_stats_from_hlo(hlo_text: str, n_devices: int) -> dict:
+    """The reference's ``collective_stats`` over optimized HLO text."""
+    records = []
+    for line in hlo_text.splitlines():
+        m = _OP_RE.match(line)
+        if not m:
+            continue
+        if "-done" in line.split("=")[1].split("(")[0]:
+            continue
+        records.append((m.group(2), _shape_bytes(m.group(1)), _group_size(line, n_devices)))
+    return _stats(records)
+
+
+def hlo_op_histogram(ops, top: int = 15) -> list[tuple[str, int]]:
+    """The most frequent ops of a step (a ``StepRecorder``'s ``ops``)."""
+    return sorted(ops.items(), key=lambda kv: -kv[1])[:top]
+
+
+def _group_size_of(group) -> int:
+    if isinstance(group, str):
+        from torch.distributed.distributed_c10d import _resolve_process_group
+
+        group = _resolve_process_group(group)
+    return group.size()
+
+
+def _tensor_bytes(tree) -> int:
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+               if isinstance(x, torch.Tensor))
+
+
+class StepRecorder(TorchDispatchMode):
+    """What runs under it: ``collectives`` [(kind, result bytes, group
+    size)], ``ops`` (a Counter of aten op names) and ``bytes_accessed``
+    (the bytes of every non-view, non-collective op's tensor arguments and
+    results: what eager execution, which fuses nothing, reads and
+    writes)."""
+
+    def __init__(self):
+        super().__init__()
+        self.collectives: list[tuple[str, float, int]] = []
+        self.ops: Counter = Counter()
+        self.bytes_accessed = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        packet = func.overloadpacket
+        namespace, name = packet._qualified_op_name.split("::")
+        if namespace == "_c10d_functional":
+            kind = _FUNCOL_KINDS.get(name)
+            if kind is not None:
+                group = kwargs.get("group_name", args[-1])
+                self.collectives.append((kind, float(_tensor_bytes(out)),
+                                         _group_size_of(group)))
+            return out
+        self.ops[str(packet)] += 1
+        if not func.is_view:
+            self.bytes_accessed += _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
+        return out

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..distributed import sharding as sh
 from ..models import decode_step, forward, loss_fn
 from ..models.config import ModelConfig
 from ..optim import adamw_update
@@ -42,8 +43,10 @@ def make_train_step(cfg: ModelConfig, n_microbatches: int = 1, *,
     gradients summed in ``grad_dtype`` (float32 by default) and divided by
     the count, and ``metrics["loss"]`` is the mean of the parts' losses.
     With one microbatch the gradients stay in the parameters' dtypes, as in
-    the reference. Then one ``adamw_update``; the inputs are left as they
-    were.
+    the reference. Inside ``launch.shardings.sharded`` each data-parallel
+    rank runs this on its own rows, and the losses and gradients are summed
+    over the ranks before the division (by microbatches × ranks). Then one
+    ``adamw_update``; the inputs are left as they were.
     """
     acc_dtype = grad_dtype or torch.float32
 
@@ -61,24 +64,29 @@ def make_train_step(cfg: ModelConfig, n_microbatches: int = 1, *,
     def train_step(params, opt_state, batch):
         if n_microbatches == 1:
             loss, grads = value_and_grad(params, batch)
-            params, opt_state = adamw_update(params, grads, opt_state, lr=lr)
-            return params, opt_state, {"loss": loss}
-        size = next(iter(batch.values())).shape[0]
-        if size % n_microbatches:
-            raise ValueError(f"a batch of {size} does not split into {n_microbatches} "
-                             "equal microbatches")
-        parts = {k: v.reshape((n_microbatches, size // n_microbatches) + v.shape[1:])
-                 for k, v in batch.items()}
-        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype, device=p.device),
-                        params)
-        lsum = 0.0
-        for i in range(n_microbatches):
-            loss, grads = value_and_grad(params, {k: v[i] for k, v in parts.items()})
-            gsum = tree_map(lambda a, g: a + g.to(acc_dtype), gsum, grads)
-            lsum = lsum + loss
-        grads = tree_map(lambda g: g / n_microbatches, gsum)
+        else:
+            size = next(iter(batch.values())).shape[0]
+            if size % n_microbatches:
+                raise ValueError(f"a batch of {size} does not split into {n_microbatches} "
+                                 "equal microbatches")
+            parts = {k: v.reshape((n_microbatches, size // n_microbatches) + v.shape[1:])
+                     for k, v in batch.items()}
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype, device=p.device),
+                             params)
+            loss = 0.0
+            for i in range(n_microbatches):
+                part_loss, part = value_and_grad(params, {k: v[i] for k, v in parts.items()})
+                grads = tree_map(lambda a, g: a + g.to(acc_dtype), grads, part)
+                loss = loss + part_loss
+        # Inside a sharded step (launch.shardings.sharded) the sums over the
+        # data-parallel ranks, each of which computed on its own rows, as
+        # GSPMD reduces the reference's gradients; outside one, unchanged.
+        n = n_microbatches * sh.data_parallel_size()
+        loss, grads = sh.data_parallel_sum(loss), sh.data_parallel_sum(grads)
+        if n > 1:
+            loss, grads = loss / n, tree_map(lambda g: g / n, grads)
         params, opt_state = adamw_update(params, grads, opt_state, lr=lr)
-        return params, opt_state, {"loss": lsum / n_microbatches}
+        return params, opt_state, {"loss": loss}
 
     return train_step
 

@@ -1,7 +1,8 @@
 """Trainer: deterministic data, delta-compressed checkpoints, crash
 restart, straggler accounting.
 
-The port of the reference's ``repro/launch/train.py``, on one device:
+The port of the reference's ``repro/launch/train.py``; the ``Trainer`` runs on
+one device:
 
 * **restart-safe**: state = (step, params, opt) lives in the NeurStore
   checkpoint store (``CheckpointManager``); the data pipeline is
@@ -13,10 +14,9 @@ The port of the reference's ``repro/launch/train.py``, on one device:
   ``TrainReport`` and the ``on_straggler`` callback.
 * **async checkpointing**: save threads overlap the next steps (the
   snapshot to host memory is taken before the call returns).
-
-The reference's ``restore_sharded`` (an elastic restore onto a device mesh)
-belongs to the distribution layer, which is not ported yet (ROADMAP queue
-A8); it has no counterpart here.
+* **elastic restore**: :func:`restore_sharded` restores the parameters
+  unsharded and places them by the live mesh's rules, whatever the mesh
+  they were trained on (DTensors over a ``DeviceMesh``).
 
 Usage:
     trainer = Trainer(cfg, ckpt_dir)            # device="cuda" by default
@@ -39,7 +39,7 @@ from ..models.config import ModelConfig
 from ..optim import adamw_init
 from .steps import make_train_step
 
-__all__ = ["TrainReport", "Trainer"]
+__all__ = ["TrainReport", "Trainer", "restore_sharded"]
 
 
 @dataclasses.dataclass
@@ -108,3 +108,18 @@ class Trainer:
 
     def storage_report(self) -> dict:
         return self.mgr.storage_report()
+
+
+def restore_sharded(mgr: CheckpointManager, mesh, ctx, step=None):
+    """Elastic restore: load unsharded tensors, place them with the live
+    mesh's rules (any topology). Returns (step, params as DTensors), or
+    (None, None) when the store holds no checkpoint. Only the parameters
+    are read from the store, as the reference returns only them; every
+    rank restores the same tensors and keeps its own part of each."""
+    from . import shardings as shd
+
+    step, state = mgr.restore(step, params_only=True)
+    if state is None:
+        return None, None
+    specs = shd.param_specs_tree(state["params"], ctx)
+    return step, shd.place(state["params"], specs, mesh)

@@ -11,10 +11,15 @@ On the card, :func:`chunked_attention` is the hand-written CUDA kernel
 (``kernels/flash_attention.py``, through ``ops.flash_attention``), whose
 autograd function gives its gradient; on the CPU it is a plain port of the
 reference's chunked scan, which autograd differentiates as XLA does the
-reference's. The reference's sharding constraints have no counterpart
-here: the port runs on one device. ``MoE``'s routing and expert products
-are plain PyTorch, as the reference's are plain ``jnp`` outside any
-Pallas kernel.
+reference's; on the ``meta`` device (``launch/dryrun.py``) the same scan
+gives shapes and operation counts. The reference's sharding constraints
+(``sh.constrain`` between layers) are not called here: on a mesh the port
+computes each layer on local tensors, gathered by
+``launch.shardings.sharded`` (data parallelism; ``distributed.sharding``
+holds the rules and a ``constrain`` that redistributes DTensors, which no
+layer calls, since tensor-parallel compute over ``model`` is not ported).
+``MoE``'s routing and expert products are plain PyTorch, as the
+reference's are plain ``jnp`` outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -88,15 +93,16 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     ck = min(chunk, sk)
     if sk % ck:
         raise ValueError(f"Sk {sk} is not a multiple of the chunk {ck}")
-    q_pos = (q_offset + torch.arange(sq))[:, None]                # (Sq, 1)
-    m = torch.full((b, kv, g, sq), -math.inf, dtype=torch.float32)
-    l = torch.zeros((b, kv, g, sq), dtype=torch.float32)
-    acc = torch.zeros((b, kv, g, sq, dh), dtype=torch.float32)
+    dev = q.device  # the CPU here, or the meta device of launch/dryrun.py
+    q_pos = (q_offset + torch.arange(sq, device=dev))[:, None]    # (Sq, 1)
+    m = torch.full((b, kv, g, sq), -math.inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kv, g, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kv, g, sq, dh), dtype=torch.float32, device=dev)
     for k_start in range(0, sk, ck):
         k_c, v_c = k[:, k_start:k_start + ck], v[:, k_start:k_start + ck]
         s = torch.einsum("bqkgd,bckd->bkgqc", qg, k_c).to(torch.float32) * scale
-        k_pos = (k_start + torch.arange(ck))[None, :]             # (1, ck)
-        mask = torch.ones((sq, ck), dtype=torch.bool)
+        k_pos = (k_start + torch.arange(ck, device=dev))[None, :]  # (1, ck)
+        mask = torch.ones((sq, ck), dtype=torch.bool, device=dev)
         if causal:
             mask = mask & (q_pos >= k_pos)
         if window > 0:

@@ -28,8 +28,11 @@ a ``Trainer`` that checkpoints and resumes on the card; for the store's
 front door, an HTTP upload whose probes launch ``quantized_l2`` from the
 server's handler thread, a delete and vacuum that compact a CUDA mirror,
 and concurrent downloads during a save; for the model zoo, the recurrent
-and MoE smoke models' forward and decode against the CPU; and the
-event-timed fall-back of the script's device-only times against the trace.
+and MoE smoke models' forward and decode against the CPU; the
+event-timed fall-back of the script's device-only times against the trace;
+and for the pod-mesh layer, the sharded train step over a world-size-1
+NCCL group bit-identical to the unsharded one and, on a machine with four
+cards (skipped on one), over four NCCL ranks against the microbatched step.
 """
 
 import dataclasses
@@ -866,3 +869,150 @@ def test_queued_event_ms_agrees_with_the_trace(cuda, kind):
     traced = kernel_ms(fn, 10, lambda: flush.add_(1.0))
     timed = queued_event_ms(fn, 10, lambda: flush.add_(1.0))
     assert abs(timed - traced) <= 0.25 * traced + 0.05, (timed, traced)
+
+
+def test_sharded_train_step_over_nccl_is_the_unsharded_step(cuda):
+    """``launch.shardings.sharded`` over a world-size-1 NCCL group and a
+    (1, 1) ("data", "model") mesh: internlm2 smoke (float32, head dim 32
+    for the kernel), 2 microbatches, 3 steps; loss, params and moments
+    bit-identical to the unsharded step on the card, with the attention
+    kernel launched on the sharded path."""
+    import torch.distributed as dist
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("internlm2-1.8b", smoke=True), d_head=32)
+    data = SyntheticLM(cfg.vocab_size, seed=3)
+    batches = [{k: torch.from_numpy(v).to(cuda) for k, v in data.batch(i, 4, 64).items()}
+               for i in range(3)]
+    params = init_params(cfg, seed=0, device=cuda)
+    opt = adamw_init(params)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        with sh.use_mesh(mesh) as ctx:
+            p_spec = shd.param_specs_tree(params, ctx)
+            o_spec = shd.opt_specs_tree(None, p_spec)
+            rows = shd.per_batch(shd.batch_specs_tree(batches[0], ctx))
+            step = shd.sharded(make_train_step(cfg, 2), (p_spec, o_spec, rows),
+                               (p_spec, o_spec, None), ctx)
+        s_params, s_opt = shd.place(params, p_spec, mesh), shd.place(opt, o_spec, mesh)
+        plain = make_train_step(cfg, 2)
+        for b in batches:
+            before = ops.launch_counts()["flash_attention_float32"]
+            s_params, s_opt, s_m = step(s_params, s_opt, b)
+            assert ops.launch_counts()["flash_attention_float32"] > before
+            params, opt, m = plain(params, opt, b)
+            assert torch.equal(s_m["loss"], m["loss"])
+            full = [x.full_tensor() for x in tree_leaves([s_params, s_opt])]
+            want = tree_leaves([params, opt])
+            assert all(torch.equal(a, w) for a, w in zip(full, want))
+    finally:
+        dist.destroy_process_group()
+
+
+def _four_rank_worker(rank: int, store_path: str, out_dir: str) -> None:
+    """One of four NCCL ranks on a (2, 2) ("data", "model") mesh, a card
+    each: two sharded train steps under each rule table, the state gathered
+    whole and saved by rank 0."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store_path, 4), rank=rank, world_size=4)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", rank)
+        cfg = dataclasses.replace(get_config("internlm2-1.8b", smoke=True), d_head=32)
+        data = SyntheticLM(cfg.vocab_size, seed=3)
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch(i, 4, 64).items()}
+                   for i in range(2)]
+        mesh = make_mesh((2, 2), ("data", "model"))
+        out = {}
+        for profile in ("tp", "dp"):
+            params = init_params(cfg, seed=0, device=dev)
+            with sh.use_mesh(mesh, profile=profile) as ctx:
+                p_spec = shd.param_specs_tree(params, ctx)
+                o_spec = shd.opt_specs_tree(None, p_spec)
+                rows = shd.per_batch(shd.batch_specs_tree(batches[0], ctx))
+                step = shd.sharded(make_train_step(cfg, 1), (p_spec, o_spec, rows),
+                                   (p_spec, o_spec, None), ctx)
+            p, o = shd.place(params, p_spec, mesh), shd.place(adamw_init(params), o_spec, mesh)
+            losses = []
+            for b in batches:
+                p, o, m = step(p, o, b)
+                losses.append(m["loss"].cpu())
+            out[profile] = (losses, [x.full_tensor().cpu() for x in tree_leaves([p, o])])
+        if rank == 0:
+            torch.save(out, os.path.join(out_dir, "out.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_train_step_over_nccl_at_four_ranks(cuda, tmp_path):
+    """Four cards, one NCCL rank each, a (2, 2) mesh: the sharded train
+    step under ``"tp"`` (2 data-parallel ranks, ``model`` pairs repeating
+    each other's compute) bit-identical to the unsharded step with 2
+    microbatches on one card, and under ``"dp"`` (4 data-parallel ranks)
+    within rtol 1e-4 / atol 1e-5 of the one with 4 (NCCL adds the four
+    gradients in another order than the microbatch loop)."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_four_rank_worker, args=(r, str(tmp_path / "store"),
+                                                          str(tmp_path))) for r in range(4)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    alive = [p.pid for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    assert not alive and [p.exitcode for p in procs] == [0] * 4
+    got = torch.load(tmp_path / "out.pt", weights_only=False)
+    cfg = dataclasses.replace(get_config("internlm2-1.8b", smoke=True), d_head=32)
+    data = SyntheticLM(cfg.vocab_size, seed=3)
+    batches = [{k: torch.from_numpy(v).to(cuda) for k, v in data.batch(i, 4, 64).items()}
+               for i in range(2)]
+    for profile, n in (("tp", 2), ("dp", 4)):
+        params = init_params(cfg, seed=0, device=cuda)
+        opt = adamw_init(params)
+        plain = make_train_step(cfg, n)
+        losses = []
+        for b in batches:
+            params, opt, m = plain(params, opt, b)
+            losses.append(m["loss"].cpu())
+        want = [x.cpu() for x in tree_leaves([params, opt])]
+        got_losses, got_state = got[profile]
+        if n == 2:
+            assert all(torch.equal(a, b) for a, b in zip(got_losses, losses))
+            assert all(torch.equal(a, b) for a, b in zip(got_state, want))
+        else:
+            np.testing.assert_allclose(torch.stack(got_losses).numpy(),
+                                       torch.stack(losses).numpy(), rtol=1e-4, atol=1e-5)
+            for a, b in zip(got_state, want):
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-5)

@@ -5,9 +5,11 @@ slices end to end (save, dedup, load at bits 8 and 4, decode on compressed
 weights; a dense model's prefill, a checkpoint and ``ModelServer.generate``
 from it; a ``Trainer`` that checkpoints and resumes; a host-quantized
 compressed serve step, full-size shape stand-ins on the ``meta`` device
-and a world-size-1 ``cross_pod_sync`` over gloo; a ``ModelStoreServer``
-over a ``NeurStore`` that takes an upload through ``StoreClient`` and serves
-it back at every width) and then checks
+and a world-size-1 ``cross_pod_sync`` over gloo; a sharded train step on
+DTensor state and ``restore_sharded`` over a world-size-1 gloo mesh; a
+``ModelStoreServer`` over a ``NeurStore`` that takes an upload through
+``StoreClient`` and serves it back at every width; one dry-run cell under
+a fake process group of 256 ranks) and then checks
 ``sys.modules``. The same holds for
 ``chip_smoke.py``, whose source is checked for imports.
 """
@@ -97,6 +99,36 @@ try:
 finally:
     dist.destroy_process_group()
 
+from repro_torch.data import SyntheticLM
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch import shardings as shd
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.train import restore_sharded
+from repro_torch.optim import adamw_init
+
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+try:
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    with sh.use_mesh(mesh) as ctx:
+        p_spec = shd.param_specs_tree(params, ctx)
+        o_spec = shd.opt_specs_tree(None, p_spec)
+        b = {k: torch.from_numpy(v) for k, v in SyntheticLM(cfg.vocab_size).batch(0, 2, 32).items()}
+        step = shd.sharded(make_train_step(cfg, 1),
+                           (p_spec, o_spec, shd.per_batch(shd.batch_specs_tree(b, ctx))),
+                           (p_spec, o_spec, None), ctx)
+        _, _, m = step(shd.place(params, p_spec, mesh),
+                       shd.place(adamw_init(params), o_spec, mesh), b)
+        assert bool(torch.isfinite(m["loss"]))
+        with tempfile.TemporaryDirectory() as root:
+            mgr = CheckpointManager(root, device="cpu")
+            mgr.save(1, params)
+            step_no, placed = restore_sharded(mgr, mesh, ctx)
+            assert step_no == 1 and placed["embed"].full_tensor().shape == params["embed"].shape
+            mgr.close()
+finally:
+    dist.destroy_process_group()
+
 from repro_torch.server import ModelStoreServer, QuotaManager, StoreClient
 from repro_torch.store import NeurStore, SaveRequest
 
@@ -114,6 +146,11 @@ with tempfile.TemporaryDirectory() as root:
             assert got.tobytes() == want.tobytes()
         client.close()
     store.close()
+
+from repro_torch.launch import dryrun
+
+rec = dryrun.run_cell("internlm2-1.8b", "decode_32k", False, verbose=False)
+assert rec["n_devices"] == 256 and rec["per_device"]["hlo_flops"] > 0, rec
 
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
