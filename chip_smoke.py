@@ -13,8 +13,9 @@ in a row is taken with CUDA events behind a spin kernel instead
    attention kernels', every ``dq_matmul_kernel``'s and every
    ``ql2_kernel``'s registers, shared memory and spills (a spill of either
    attention kernel at any head dim, 256 included, of the matmuls or of
-   the distances fails the run),
-   and check in the SASS (``cuobjdump``; none found fails the run) that no
+   the distances fails the run; so does a ``setmaxnreg`` that ptxas
+   ignored; the head-dim-256 kernel's registers a warpgroup after it are
+   printed), and check in the SASS (``cuobjdump``; none found fails the run) that no
    integer-to-float conversion instruction turns codes into floats in
    ``dq_matmul_kernel`` and that every ``flash_attn_tf32`` runs its
    products as ``HGMMA`` on tf32 operands.
@@ -46,10 +47,16 @@ in a row is taken with CUDA events behind a spin kernel instead
    bfloat16 (the bf16 tensor-core kernel), and one 8192-token prompt in
    bfloat16; the same test shapes at head dim 256 and recurrentgemma-9b's
    prefill shape (q (1, 8192, 16, 256), k/v (1, 8192, 1, 256), causal,
-   window 2048) on both routes (bfloat16: 64-row blocks with one consumer
-   warpgroup; float32: FMA on the CUDA cores), each with kernel, plain,
-   bound and ``scaled_dot_product_attention`` times; at both prefill
-   shapes also device-only (``profile_steps.kernel_ms``). The float32 bound
+   window 2048) on both routes (bfloat16: 128-row blocks, two consumer
+   warpgroups taking turns on the tensor cores; float32: FMA on the CUDA
+   cores), each with kernel, plain, bound and
+   ``scaled_dot_product_attention`` times; at both prefill shapes also
+   device-only (``profile_steps.kernel_rounds_ms``, the median over the
+   traced rounds), taken right after the host-inclusive time and before
+   the plain and library runs; the card's SM clock, power and temperature
+   once, after the bfloat16 head-dim-256 kernel's; at head dim 256 in
+   bfloat16, the K/V tile bytes a launch loads (from the grid and the
+   tile plan) at 128-row and at 64-row blocks. The float32 bound
    is three tf32 products an operation at the tf32 rate (one misses the
    tolerance), with the float32 CUDA-core figure beside it.
 6. The model stack at the full widths and depth of internlm2-1.8b (24
@@ -416,20 +423,25 @@ def _time_ms(fn, reps: int, flush: torch.Tensor) -> float:
 EVENT_TIMED: list[tuple[str, str]] = []
 
 
-def _device_ms(fn, reps: int, flush: torch.Tensor, match: str | None = None) -> float:
-    """Mean device ms of ``fn`` a run, host issue left out: the summed
+def _device_ms(fn, reps: int, flush: torch.Tensor, match: str | None = None,
+               rounds: list | None = None) -> float:
+    """Median device ms of ``fn`` a run, host issue left out: the summed
     durations of the kernels it launches (those named with ``match``)
     between L2 flushes, from a ``torch.profiler`` trace
-    (``profile_steps.kernel_ms``). Where three traces in a row come back
+    (``profile_steps.kernel_rounds_ms``; each round's ms is appended to
+    ``rounds`` when given). Where three traces in a row come back
     without the timed kernels (as one did on an H100 machine before any
     model ran), it is timed with CUDA events behind a spin kernel instead
     (``profile_steps.queued_event_ms``: all of ``fn``'s kernels and the
     gaps between them), and the fall-back is logged and listed in
     ``EVENT_TIMED``."""
-    from repro_torch.launch.profile_steps import kernel_ms, queued_event_ms
+    from repro_torch.launch.profile_steps import kernel_rounds_ms, queued_event_ms
 
     try:
-        return kernel_ms(fn, reps, lambda: flush.add_(1.0), match)
+        per = kernel_rounds_ms(fn, reps, lambda: flush.add_(1.0), match)
+        if rounds is not None:
+            rounds.extend(per)
+        return float(np.median(per))
     except RuntimeError as exc:
         ms = queued_event_ms(fn, reps, lambda: flush.add_(1.0))
         what = getattr(fn, "__qualname__", "?") + (f" ({match})" if match else "")
@@ -615,16 +627,30 @@ def phase_build() -> dict:
     _build.build_all()
     log(f"build: {list(_build.KERNEL_SOURCES)} in {time.perf_counter() - t0:.3f} s "
         f"({_build.BUILD_DIR.relative_to(ROOT)})")
-    stats = {int(k): v for k, v in
-             _ptxas(_build.build_log("flash_attention_sm90"), r"flash_attn_sm90ILi(\d+)E").items()}
+    sm90_log = _build.build_log("flash_attention_sm90")
+    stats = {int(k): v for k, v in _ptxas(sm90_log, r"flash_attn_sm90ILi(\d+)E").items()}
     lib = fa._library("flash_attention_sm90")
     for dh, st in sorted(stats.items()):
         st["dynamic_smem_bytes"] = lib.flash_attention_sm90_smem_bytes(dh)
-        log(f"ptxas: flash_attn_sm90<{dh}>: {st}")
+        # Registers a thread after setmaxnreg (head dim 256): ptxas reports
+        # the launch's allocation; the producer warpgroup then gives up
+        # registers to the two consumer warpgroups.
+        regs = [lib.flash_attention_sm90_setmaxnreg(dh, role) for role in (0, 1)]
+        log(f"ptxas: flash_attn_sm90<{dh}>: {st}"
+            + (f"; registers a thread after setmaxnreg: producer warpgroup {regs[0]}, "
+               f"each of the 2 consumer warpgroups {regs[1]} (128 x {regs[0]} + 256 x "
+               f"{regs[1]} = {128 * regs[0] + 256 * regs[1]} of 65536)" if regs[0] else ""))
     spilled = {d: st for d, st in stats.items() if st.get("spill_stores") or st.get("spill_loads")}
     if sorted(stats) != list(fa.HEAD_DIMS) or spilled:
         fail(f"flash_attn_sm90 build: head dims {sorted(stats)} in the ptxas log, "
              f"spills {spilled}")
+    # ptxas ignores setmaxnreg where it cannot tell a warpgroup's registers
+    # (C7508), and serializes wgmma where it cannot keep their registers apart.
+    warned = [line.strip() for line in sm90_log.splitlines() if "warning" in line.lower()]
+    for line in warned:
+        log(f"ptxas warning (flash_attention_sm90.cu): {line}")
+    if any("setmaxnreg" in line for line in warned):
+        fail("flash_attn_sm90 build: ptxas ignored setmaxnreg")
     # The float32 route: the split-tf32 kernel at every head dim but 256,
     # which takes flash_attn_fma256 (float32 FMA on the CUDA cores).
     tf32_dims = [d for d in fa.HEAD_DIMS if d != 256]
@@ -912,6 +938,7 @@ def phase_flash_attention(dev_info: dict, ptxas: dict, held: dict) -> list[dict]
     prefill) and of head dim 256 (per recurrentgemma-9b prefill)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
+    from repro_torch.launch.profile_steps import card_state
 
     bw = dev_info["bandwidth"]
     rng = np.random.default_rng(SEED + 5)
@@ -945,8 +972,25 @@ def phase_flash_attention(dev_info: dict, ptxas: dict, held: dict) -> list[dict]
                  f"{ops.launch_counts()[key] - before}")
         held["flash_attention"].add(_fa_key(q, k, causal, window, None))
         big = sq * sk >= 1 << 22
-        ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
-                      10 if big else 20, flush)
+        call = lambda: fa.flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
+        kname = device_kernels.get((shape, dtype))
+        dev_ms = lib_dev_ms = None
+        if kname is None:
+            ms = _time_ms(call, 10 if big else 20, flush)
+        else:
+            # Host-inclusive, then device-only, back to back before the
+            # plain version's and the library's long runs; each is a median
+            # over its runs. The card's state is read once in the phase,
+            # right after the bfloat16 head-dim-256 kernel's.
+            rounds = []
+            ms = _time_ms(call, 10, flush)
+            dev_ms = _device_ms(call, 10, flush, kname, rounds)
+            smi = card_state() if (shape, dtype) == (FA_RG_PREFILL, torch.bfloat16) else None
+            log(f"timing: {name}: host-inclusive {ms:.6f} ms, device-only {dev_ms:.6f} ms"
+                + (f" (traced rounds {min(rounds):.6f}-{max(rounds):.6f})" if rounds else "")
+                + f"; device-only <= host-inclusive: {dev_ms <= ms}"
+                + ("" if smi is None else f"; nvidia-smi clocks.sm, power.draw, temperature "
+                   f"[{smi}]"))
         plain_ms = _time_ms(lambda: ref.flash_attention(q, k, v, causal=causal, window=window),
                             3 if big else 10, flush)
         lib_ms = _time_ms(lambda: _sdpa(q, k, v, causal, window), 10 if big else 20, flush)
@@ -967,12 +1011,23 @@ def phase_flash_attention(dev_info: dict, ptxas: dict, held: dict) -> list[dict]
                          f"tf32; {flops / FP32_PEAK * 1e3:.6f} at the "
                          f"{FP32_PEAK / 1e12:.0f} TFLOP/s float32 CUDA-core peak")
         bound = max(nbytes / bw, t_ops) * 1e3
-        dev_ms = lib_dev_ms = None
-        kname = device_kernels.get((shape, dtype))
         if kname is not None:
-            dev_ms = _device_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
-                                10, flush, kname)
             lib_dev_ms = _device_ms(lambda: _sdpa(q, k, v, causal, window), 10, flush)
+        if dh == 256 and esize == 2:
+            # The K/V tiles a launch loads (from L2: one slab's K and V fit
+            # there), from the grid and each block's key-tile range, at this
+            # kernel's 128-row blocks and at the 64-row blocks of the
+            # head-dim-256 kernel before it.
+            tile_bytes = {rows: fa.kv_tile_bytes(b, sq, sk, h, kv, dh, causal=causal,
+                                                 window=window, block_rows=rows)
+                          for rows in (fa.BLOCK_ROWS, 64)}
+            t = dev_ms or ms
+            log(f"K/V tiles: {name}: {tile_bytes[fa.BLOCK_ROWS]} bytes a launch at "
+                f"{fa.BLOCK_ROWS}-row blocks ({tile_bytes[fa.BLOCK_ROWS] / t / 1e9:.3f} TB/s "
+                f"over the {'device-only' if dev_ms else 'host-inclusive'} {t:.6f} ms), "
+                f"{tile_bytes[64]} at the 64-row blocks of the kernel before; issued "
+                f"operations {1.5 * flops:.4e} ({1.5 * flops / t / 1e9:.3f} TFLOP/s, "
+                f"{1.5 * flops / t / 1e9 / (BF16_TC_PEAK / 1e12):.4f} of the bf16 peak)")
         log(f"shape: {name} [{route}]: ms {ms:.6f}"
             + ("" if dev_ms is None else f" device_ms {dev_ms:.6f} (library {lib_dev_ms:.6f})")
             + f" plain {plain_ms:.6f} library {lib_ms:.6f} bound {bound:.6f} ({peak_note}; "
@@ -1042,7 +1097,7 @@ def phase_flash_attention(dev_info: dict, ptxas: dict, held: dict) -> list[dict]
         "bound_ms": n * bf["bound_ms"], "bound_by": bf["bound_by"],
         "library_ms": n * bf["library_ms"], "ms_per_launch": bf["ms"],
         "device_ms": n * bf["device_ms"], "library_device_ms": n * bf["library_device_ms"],
-        "ptxas": ptxas["bfloat16_dh256"],
+        "ptxas": ptxas["bfloat16_dh256"], "device_ms_per_launch": bf["device_ms"],
         "f32_source": "src/repro_torch/csrc/flash_attention.cu", "f32_kernel": "flash_attn_fma256",
         "f32_ms": n * f32["ms"], "f32_plain_ms": n * f32["plain_ms"],
         "f32_library_ms": n * f32["library_ms"], "f32_bound_ms": n * f32["bound_ms"],

@@ -71,6 +71,32 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// ---------------------------------------------------------- named barriers
+// Barrier `id` (1..15; 0 is __syncthreads') completes when `count` threads
+// (a multiple of 32) have reached it: bar_sync arrives and waits, bar_arrive
+// arrives only.
+__device__ __forceinline__ void bar_sync(uint32_t id, uint32_t count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint32_t id, uint32_t count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ------------------------------------------------------------- setmaxnreg
+// Sets the registers a thread of the executing warpgroup may hold (a
+// multiple of 8 in 24..256); all four of its warps execute it together.
+// Lowering frees registers for the other warpgroups; raising waits until
+// the block's pool has them. ptxas honours it only where each warpgroup's
+// path is known from the kernel's entry (one if-else that never rejoins).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // ------------------------------------------------------------------- wgmma
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");

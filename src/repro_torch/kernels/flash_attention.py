@@ -22,9 +22,14 @@ float32   ``csrc/flash_attention.cu``      rtol 1e-4, atol 2e-5: the
           FMA on the CUDA cores)
 ========  ===============================  =====================================
 
-At head dim 256 (recurrentgemma) the bfloat16 kernel runs 64-row blocks
-with one consumer warpgroup, and the float32 route a simpler kernel on the
-CUDA cores: the split-tf32 layout does not fit in shared memory there.
+At head dim 256 (recurrentgemma) the bfloat16 kernel keeps its 128-row
+blocks and runs a schedule of its own (``setmaxnreg``, two consumer
+warpgroups taking turns on the tensor cores, a 2-stage ring of K and V
+tiles), and the float32 route a simpler kernel on the CUDA cores: the
+split-tf32 layout does not fit in shared memory there. :func:`key_tiles`
+mirrors the key tiles each block of the bfloat16 kernel sweeps,
+:func:`tile_needs_mask` the tiles on which it applies the masks, and
+:func:`kv_tile_bytes` the K/V bytes a launch reads from them.
 
 The wrapper takes a kernel for CUDA tensors and the plain version of
 ``ref.py`` for CPU tensors. A CUDA input that its route's kernel cannot take
@@ -54,14 +59,16 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import ref
 from ._build import load_library
 from .dequant_matmul import _on_cpu
 
-__all__ = ["HEAD_DIMS", "ROUTES", "FlashAttentionFn", "flash_attention", "launches",
-           "launches_dh256"]
+__all__ = ["BLOCK_ROWS", "HEAD_DIMS", "KEY_TILE", "ROUTES", "FlashAttentionFn",
+           "flash_attention", "key_tiles", "kv_tile_bytes", "launches", "launches_dh256",
+           "tile_needs_mask"]
 
 #: The library each dtype launches; the only dispatch there is.
 ROUTES = {torch.bfloat16: "flash_attention_sm90", torch.float32: "flash_attention"}
@@ -78,7 +85,64 @@ launches_dh256 = {"bfloat16": 0, "float32": 0}
 #: Head dims both routes are built for.
 HEAD_DIMS = (32, 64, 80, 128, 256)
 
+#: Rows of a (batch, KV head) slab that a block of the bfloat16 kernel owns
+#: (row r is query position r // G of head kv * G + r % G), and keys a K/V
+#: tile (``Cfg<DH>::BQ`` and ``kBK`` in ``csrc/flash_attention_sm90.cu``).
+BLOCK_ROWS, KEY_TILE = 128, 64
+
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+def key_tiles(sq: int, sk: int, g: int, *, causal: bool, window: int = 0, sk_true=None,
+              block_rows: int = BLOCK_ROWS) -> np.ndarray:
+    """The key tiles ``[t_lo, t_hi)`` each block of the bfloat16 kernel
+    sweeps, as an (n_blocks, 2) array in row order (block i owns rows
+    ``i * block_rows`` onwards of a slab of ``sq * g`` rows); mirrors
+    ``plan_block`` in ``csrc/flash_attention_sm90.cu``, with ``sk_true`` as
+    :func:`flash_attention` passes it (at most ``sk``).
+
+    A block skips the tiles masked for all its rows only when every row has
+    a real key (below ``sk_true`` and, with a window, within it), because
+    only then is the sweep over them wiped by ``corr = 0``; otherwise it
+    sweeps every tile.
+    """
+    sk_true = sk if sk_true is None else min(sk, int(sk_true))
+    rows = sq * g
+    r0 = np.arange(0, rows, block_rows, dtype=np.int64)
+    q_lo, q_hi = r0 // g, (np.minimum(r0 + block_rows, rows) - 1) // g
+    n_tiles = -(-sk // KEY_TILE)
+    all_real = np.full(r0.shape, sk_true >= 1)
+    if window > 0:
+        all_real &= q_hi < sk_true - 1 + window
+    k_end = np.minimum(q_hi + 1, sk_true) if causal else np.full_like(r0, sk_true)
+    t_hi = np.where(all_real, -(-k_end // KEY_TILE), n_tiles)
+    lo = np.maximum(0, q_lo - window + 1) // KEY_TILE if window > 0 else 0
+    t_lo = np.where(all_real, lo, 0)
+    return np.stack([t_lo, t_hi], axis=1)
+
+
+def tile_needs_mask(q_lo: int, q_hi: int, t: int, sk: int, *, causal: bool, window: int = 0,
+                    sk_true=None) -> bool:
+    """Whether the bfloat16 kernel masks key tile ``t`` for a block whose
+    rows hold query positions ``q_lo .. q_hi``: some key of the tile lies
+    past ``sk`` or ``sk_true``, after some row's position (causal) or a
+    window or more before it. Mirrors ``FA_TILE_NEEDS_MASK`` in
+    ``csrc/flash_attention_sm90.cu``; the kernel skips the masks elsewhere."""
+    sk_true = sk if sk_true is None else min(sk, int(sk_true))
+    k0 = t * KEY_TILE
+    k_last = k0 + KEY_TILE - 1
+    return (k_last >= sk or k_last >= sk_true or (causal and k_last > q_lo)
+            or (window > 0 and q_hi - k0 >= window))
+
+
+def kv_tile_bytes(b: int, sq: int, sk: int, h: int, kv: int, dh: int, *, causal: bool,
+                  window: int = 0, sk_true=None, block_rows: int = BLOCK_ROWS) -> int:
+    """Bytes of K and V tiles (bfloat16, whole tiles) that the blocks of one
+    launch load, from the grid and :func:`key_tiles`: each block of each
+    (batch, KV head) slab loads its tiles' K and V once."""
+    plan = key_tiles(sq, sk, h // kv, causal=causal, window=window, sk_true=sk_true,
+                     block_rows=block_rows)
+    return int((plan[:, 1] - plan[:, 0]).sum()) * b * kv * 2 * KEY_TILE * dh * 2
 
 
 def _library(route: str) -> ctypes.CDLL:
@@ -168,7 +232,8 @@ def _launch(q, k, v, causal: bool, window: int, sk_true) -> torch.Tensor:
     route = ROUTES[q.dtype]
     if route == "flash_attention_sm90":
         _check_tma(q, k, v)
-    sk_true = sk if sk_true is None else int(sk_true)
+    # Keys past Sk do not exist either way; the kernels' tile plans take sk_true <= Sk.
+    sk_true = sk if sk_true is None else min(sk, int(sk_true))
     o = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o

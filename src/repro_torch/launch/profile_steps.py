@@ -56,7 +56,9 @@ device's busy time spent in ``dq_matmul`` kernels
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
+import subprocess
 import tempfile
 import time
 from collections import Counter, defaultdict
@@ -72,8 +74,8 @@ from ..kernels import ops
 from ..models import init_cache, init_params
 from .steps import make_prefill_step, make_serve_step
 
-__all__ = ["kernel_ms", "main", "queued_event_ms", "summarize", "trace_compressed_decode",
-           "trace_prefill", "trace_train_step", "window_probe"]
+__all__ = ["card_state", "kernel_ms", "kernel_rounds_ms", "main", "queued_event_ms", "summarize",
+           "trace_compressed_decode", "trace_prefill", "trace_train_step", "window_probe"]
 
 ARCH, SEED = "internlm2-1.8b", 0
 # The record_function ranges of models/recurrent.py: the RG-LRU scan and the
@@ -201,19 +203,22 @@ def _active_kernels(body, warmup: int, reps: int,
     return _kernels(prof)
 
 
-def kernel_ms(fn, reps: int, flush, match: str | None = None, warmup: int = 5,
-              tries: int = 3) -> float:
-    """Mean device ms a call of ``fn``, host issue left out: the summed
-    durations of the kernels ``fn`` launches (those whose name holds
-    ``match``, or all but the flush's) over ``reps`` rounds of
-    (``flush()``, ``fn()``), traced by ``torch.profiler``
-    (:func:`_active_kernels`); kernels that start before the active
-    step's first flush are not counted.
+def kernel_rounds_ms(fn, reps: int, flush, match: str | None = None, warmup: int = 5,
+                     tries: int = 3) -> list[float]:
+    """Device ms of each round of (``flush()``, ``fn()``) that the tracer
+    kept, host issue left out: the summed durations of the kernels ``fn``
+    launches in the round (those whose name holds ``match``, or all but the
+    flush's), traced by ``torch.profiler`` over ``reps`` rounds
+    (:func:`_active_kernels`); kernels that start before the active step's
+    first flush are not counted.
 
-    The tracer can drop whole rounds, so the mean is taken over the rounds
-    it kept: at least half of them, each with the same number of kernels
-    of ``fn`` (one, with ``match``). A trace that breaks this is taken
-    again, up to ``tries`` times, and then raises. Needs a CUDA card."""
+    The tracer can drop whole rounds, so the rounds it kept are returned:
+    at least half of them, with a number of kernels of ``fn`` that the
+    rounds divide (one a round, with ``match``). A trace that breaks this
+    is taken again, up to ``tries`` times, and then raises. Where the
+    rounds hold unequal numbers of ``fn``'s kernels (a kernel of ``fn``
+    named like the flush's splits a round), each round is given the mean.
+    Needs a CUDA card."""
     fn()
     torch.cuda.synchronize()
     rounds, mine = 0, []
@@ -222,15 +227,37 @@ def kernel_ms(fn, reps: int, flush, match: str | None = None, warmup: int = 5,
         flush_names = {name for _, _, name in _active_kernels(flush, 2, 2)}
         ks = _active_kernels(lambda: (flush(), fn()), warmup, reps)
         starts = [s for s, _, name in ks if name in flush_names]
-        mine = [(e - s, name) for s, e, name in ks if starts and s >= starts[0]
+        mine = [(s, e - s, name) for s, e, name in ks if starts and s >= starts[0]
                 and name not in flush_names and (match is None or match in name)]
         rounds = len(starts)
+        per = [[] for _ in starts]
+        for s, t, _ in mine:
+            per[bisect.bisect_right(starts, s) - 1].append(t)
         if (2 * rounds >= reps and mine and len(mine) % rounds == 0
                 and (match is None or len(mine) == rounds)):
-            return sum(t for t, _ in mine) / rounds / 1e3
-    names = Counter(name[:60] for _, name in mine)
+            if len({len(ts) for ts in per}) == 1:
+                return [sum(ts) / 1e3 for ts in per]
+            return [sum(t for _, t, _ in mine) / rounds / 1e3] * rounds
+    names = Counter(name[:60] for _, _, name in mine)
     raise RuntimeError(f"the trace holds {rounds} of {reps} flushes and {len(mine)} kernels "
                        f"of the timed call: {dict(names)}")
+
+
+def kernel_ms(fn, reps: int, flush, match: str | None = None, warmup: int = 5,
+              tries: int = 3) -> float:
+    """Mean device ms a call of ``fn``, host issue left out: the mean over
+    the rounds of :func:`kernel_rounds_ms` that the tracer kept. Needs a
+    CUDA card."""
+    return float(np.mean(kernel_rounds_ms(fn, reps, flush, match, warmup, tries)))
+
+
+def card_state() -> str:
+    """The card's SM clock, power draw and temperature, as ``nvidia-smi``
+    reads them, to print beside a time (a card below its power limit, or a
+    hot one, runs slower)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout.strip()
 
 
 def queued_event_ms(fn, reps: int, flush, warmup: int = 3) -> float:

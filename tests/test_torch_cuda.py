@@ -18,7 +18,9 @@ index's device mirror; for ``flash_attention``, both
 routes (bfloat16 and split tf32, both on the tensor cores; float32 FMA at
 head dim 256), every head dim, recurrentgemma's windowed prefill shape,
 groups that do not divide the 128-row tile, strided inputs, key lengths
-short of Sk, rows that have no real key, the bfloat16 route's alignment
+short of Sk and past it, rows that have no real key, at head dim 256 a last
+block half past the grid, a window's edge inside a key tile, one query
+position at G = 16 and K/V read from a packed tensor, the bfloat16 route's alignment
 rules, and for float32 rows that do not start on 16 bytes, a peaked
 softmax (q and k scaled x3) and the internlm2 prefill shape; for
 training, the attention's gradients through ``FlashAttentionFn`` on both
@@ -363,6 +365,12 @@ def test_save_load_decode_on_the_card_matches_the_cpu(cuda, tmp_path):
     (2, 130, 200, 4, 2, 256, False, 0, 170),    # dh = 256: ragged, keys past sk_true
     (1, 96, 96, 8, 8, 256, True, 0, None),      # dh = 256: one head a KV head
     (1, 130, 90, 6, 2, 256, False, 20, None),   # dh = 256: rows past 108 have no real key
+    (1, 100, 100, 16, 1, 256, True, 0, None),   # dh = 256: Sq * G not a multiple of 128
+    (1, 36, 36, 16, 1, 256, True, 0, None),     # dh = 256: the last block half past the grid
+    (1, 300, 300, 16, 1, 256, True, 100, None), # dh = 256: the window's edge inside a tile
+    (1, 1, 300, 16, 1, 256, True, 0, None),     # dh = 256: one query position, G = 16
+    (1, 130, 90, 6, 2, 256, False, 20, 1000),   # dh = 256: sk_true past Sk (all keys real)
+    (1, 130, 90, 6, 2, 128, False, 20, 1000),   # sk_true past Sk (all keys real)
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, b, sq, sk, h, kv, dh, causal, window,
@@ -390,6 +398,22 @@ def test_flash_attention_reads_strided_inputs(cuda, dtype, dh):
     assert not q.is_contiguous()
     got = ops.flash_attention(q, k, v, causal=True)
     want = ref.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    tol = dict(rtol=1e-4, atol=2e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-5)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_dh256_reads_strided_kv(cuda, dtype):
+    """K and V at head dim 256 as views into one packed (B, Sk, 2 KV, dh)
+    tensor (head stride dh, position stride 2 KV dh, batch stride Sk 2 KV
+    dh), with G = 8, a window and Sq != Sk."""
+    rng = np.random.default_rng(257)
+    q = torch.from_numpy(rng.normal(0, 1, (2, 150, 16, 256)).astype(np.float32)).to(cuda, dtype)
+    kv = torch.from_numpy(rng.normal(0, 1, (2, 170, 4, 256)).astype(np.float32)).to(cuda, dtype)
+    k, v = kv[:, :, :2], kv[:, :, 2:]
+    assert not k.is_contiguous() and not v.is_contiguous()
+    got = ops.flash_attention(q, k, v, causal=False, window=70)
+    want = ref.flash_attention(q, k.contiguous(), v.contiguous(), causal=False, window=70)
     tol = dict(rtol=1e-4, atol=2e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-5)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
 
@@ -430,6 +454,20 @@ def test_flash_attention_f32_peaked_softmax_matches_plain(cuda, b, sq, sk, h, kv
     tol = dict(rtol=1e-4, atol=2e-5)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol)
     np.testing.assert_allclose(got.double().cpu().numpy(), exact.cpu().numpy(), **tol)
+
+
+def test_flash_attention_bf16_dh256_peaked_softmax_matches_plain(cuda):
+    # q and k scaled x3: tile maxima pass the kernel's running max by more
+    # than its kStaleMax on some rows and not on others, so both branches of
+    # its rescale run (tests/test_torch_flash_split.py emulates this).
+    rng = np.random.default_rng(300 + 300 + 16 + 256)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(cuda)
+               for shape in ((1, 300, 16, 256), (1, 300, 1, 256), (1, 300, 1, 256)))
+    q, k, v = (3 * q).bfloat16(), (3 * k).bfloat16(), v.bfloat16()
+    got = fa.flash_attention(q, k, v, causal=True, window=100)
+    want = ref.flash_attention(q, k, v, causal=True, window=100)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=1e-2, atol=1e-5)
 
 
 def test_flash_attention_f32_at_the_prefill_shape_matches_plain(cuda):
