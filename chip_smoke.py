@@ -14,11 +14,12 @@ in a row is taken with CUDA events behind a spin kernel instead
    ``ql2_kernel``'s registers, shared memory and spills (a spill of either
    attention kernel at any head dim, 256 included, of the matmuls or of
    the distances fails the run; so does a ``setmaxnreg`` that ptxas
-   ignored; the head-dim-256 kernel's registers a warpgroup after it are
-   printed), and check in the SASS (``cuobjdump``; none found fails the run) that no
+   ignored, or float32 ``wgmma`` that it serialized; the bfloat16
+   head-dim-256 kernel's registers a warpgroup after it are printed), and
+   check in the SASS (``cuobjdump``; none found fails the run) that no
    integer-to-float conversion instruction turns codes into floats in
-   ``dq_matmul_kernel`` and that every ``flash_attn_tf32`` runs its
-   products as ``HGMMA`` on tf32 operands.
+   ``dq_matmul_kernel`` and that every ``flash_attn_tf32``, at all five
+   head dims, runs its products as ``HGMMA`` on tf32 operands.
 3. Kernels against their plain PyTorch versions, on the card, at the shapes
    the main path gives them; prints one ``{"kernels": [...]}`` line with
    launches, errors, times and bounds. Times are host-inclusive (CUDA
@@ -48,15 +49,16 @@ in a row is taken with CUDA events behind a spin kernel instead
    bfloat16; the same test shapes at head dim 256 and recurrentgemma-9b's
    prefill shape (q (1, 8192, 16, 256), k/v (1, 8192, 1, 256), causal,
    window 2048) on both routes (bfloat16: 128-row blocks, two consumer
-   warpgroups taking turns on the tensor cores; float32: FMA on the CUDA
-   cores), each with kernel, plain, bound and
+   warpgroups taking turns on the tensor cores; float32: split tf32 on the
+   tensor cores, 64-row blocks), each with kernel, plain, bound and
    ``scaled_dot_product_attention`` times; at both prefill shapes also
    device-only (``profile_steps.kernel_rounds_ms``, the median over the
    traced rounds), taken right after the host-inclusive time and before
    the plain and library runs; the card's SM clock, power and temperature
-   once, after the bfloat16 head-dim-256 kernel's; at head dim 256 in
-   bfloat16, the K/V tile bytes a launch loads (from the grid and the
-   tile plan) at 128-row and at 64-row blocks. The float32 bound
+   once, after the bfloat16 head-dim-256 kernel's; at head dim 256 the
+   K/V tile bytes a launch loads (from the grid and the tile plan): in
+   bfloat16 at 128-row and at 64-row blocks, in float32 at the float32
+   kernel's 64-row blocks. The float32 bound
    is three tf32 products an operation at the tf32 rate (one misses the
    tolerance), with the float32 CUDA-core figure beside it.
 6. The model stack at the full widths and depth of internlm2-1.8b (24
@@ -651,32 +653,36 @@ def phase_build() -> dict:
         log(f"ptxas warning (flash_attention_sm90.cu): {line}")
     if any("setmaxnreg" in line for line in warned):
         fail("flash_attn_sm90 build: ptxas ignored setmaxnreg")
-    # The float32 route: the split-tf32 kernel at every head dim but 256,
-    # which takes flash_attn_fma256 (float32 FMA on the CUDA cores).
-    tf32_dims = [d for d in fa.HEAD_DIMS if d != 256]
+    # The float32 route: the split-tf32 kernel at every head dim (256 with a
+    # layout of its own: 64-row blocks, K/V by TMA, a converter and one
+    # consumer warpgroup, no setmaxnreg).
     log32 = _build.build_log("flash_attention")
     f32 = {int(k): v for k, v in _ptxas(log32, r"flash_attn_tf32ILi(\d+)E").items()}
-    fma = _ptxas(log32, r"(flash_attn_fma256)")
     lib32 = fa._library("flash_attention")
     for dh, st in sorted(f32.items()):
         st["dynamic_smem_bytes"] = lib32.flash_attention_smem_bytes(dh)
         log(f"ptxas: flash_attn_tf32<{dh}>: {st}")
-    for st in fma.values():
-        st["dynamic_smem_bytes"] = lib32.flash_attention_smem_bytes(256)
-        log(f"ptxas: flash_attn_fma256: {st}")
-    spilled = {d: st for d, st in {**f32, **fma}.items()
-               if st.get("spill_stores") or st.get("spill_loads")}
-    if sorted(f32) != tf32_dims or len(fma) != 1 or spilled:
-        fail(f"flash_attention (float32) build: tf32 head dims {sorted(f32)} and "
-             f"{len(fma)} flash_attn_fma256 in the ptxas log, spills {spilled}")
+    spilled = {d: st for d, st in f32.items() if st.get("spill_stores") or st.get("spill_loads")}
+    if sorted(f32) != list(fa.HEAD_DIMS) or spilled:
+        fail(f"flash_attention (float32) build: tf32 head dims {sorted(f32)} in the ptxas log, "
+             f"spills {spilled}")
+    # ptxas serializes every wgmma of a kernel where a non-wgmma instruction
+    # touches registers of one in flight (C7514, an info line, no warning).
+    warned = [line.strip() for line in log32.splitlines()
+              if "warning" in line.lower() or "Performance Loss" in line]
+    for line in warned:
+        log(f"ptxas warning (flash_attention.cu): {line}")
+    if any("setmaxnreg" in line or "serialized" in line for line in warned):
+        fail("flash_attn_tf32 build: ptxas ignored setmaxnreg or serialized wgmma")
     hgmma = _sass_count(_build.library_path("flash_attention"), "flash_attn_tf32",
                         lambda line: "HGMMA" in line and "TF32" in line)
     if hgmma is None:
         fail("flash_attn_tf32 SASS: no cuobjdump found (CUDA toolkit or Triton's package), "
              "so the tf32 products cannot be checked")
     log(f"sass: HGMMA on tf32 operands in each flash_attn_tf32: {hgmma}")
-    if len(hgmma) != len(tf32_dims) or not all(hgmma.values()):
-        fail(f"flash_attn_tf32 SASS: tf32 HGMMA instructions {hgmma}")
+    if len(hgmma) != len(fa.HEAD_DIMS) or not all(hgmma.values()):
+        fail(f"flash_attn_tf32 SASS: tf32 HGMMA instructions {hgmma} (want all "
+             f"{len(fa.HEAD_DIMS)} head dims)")
     dq = _ptxas(_build.build_log("dequant_matmul"), r"dq_matmul_kernelI(\w+?)EEv")
     for args, st in sorted(dq.items()):
         log(f"ptxas: dq_matmul_kernel<{args}>: {st}")
@@ -698,7 +704,7 @@ def phase_build() -> dict:
     if not conv or any(conv.values()):
         fail(f"dq_matmul_kernel SASS: integer-to-float conversions {conv}")
     return {"bfloat16": stats[FA_PREFILL[5]], "float32": f32[FA_PREFILL[5]],
-            "bfloat16_dh256": stats[256], "float32_dh256": fma["flash_attn_fma256"]}
+            "bfloat16_dh256": stats[256], "float32_dh256": f32[256]}
 
 
 def _hold_l2(args) -> tuple[float, float]:
@@ -951,7 +957,7 @@ def phase_flash_attention(dev_info: dict, ptxas: dict, held: dict) -> list[dict]
     device_kernels = {(FA_PREFILL, torch.bfloat16): "flash_attn_sm90",
                       (FA_PREFILL, torch.float32): "flash_attn_tf32",
                       (FA_RG_PREFILL, torch.bfloat16): "flash_attn_sm90",
-                      (FA_RG_PREFILL, torch.float32): "flash_attn_fma256"}
+                      (FA_RG_PREFILL, torch.float32): "flash_attn_tf32"}
     for shape, dtype in cases:
         b, sq, sk, h, kv, dh, causal, window = shape
         q, k, v = (torch.from_numpy(rng.normal(0, 1, (b, s, n, dh)).astype(np.float32))
@@ -1013,6 +1019,17 @@ def phase_flash_attention(dev_info: dict, ptxas: dict, held: dict) -> list[dict]
         bound = max(nbytes / bw, t_ops) * 1e3
         if kname is not None:
             lib_dev_ms = _device_ms(lambda: _sdpa(q, k, v, causal, window), 10, flush)
+        if dh == 256 and esize == 4:
+            # The float32 kernel's 64-row blocks each read their tiles' K and
+            # V once, as float32 (from L2), and split them on chip.
+            f32_tiles = fa.kv_tile_bytes(b, sq, sk, h, kv, dh, causal=causal, window=window,
+                                         block_rows=fa.F32_DH256_BLOCK_ROWS, elem_bytes=4)
+            t = dev_ms or ms
+            log(f"K/V tiles: {name}: {f32_tiles} bytes a launch at "
+                f"{fa.F32_DH256_BLOCK_ROWS}-row blocks ({f32_tiles / t / 1e9:.3f} TB/s over the "
+                f"{'device-only' if dev_ms else 'host-inclusive'} {t:.6f} ms); issued tf32 "
+                f"operations {F32_SPLIT * flops:.4e} ({F32_SPLIT * flops / t / 1e9:.3f} TFLOP/s, "
+                f"{F32_SPLIT * flops / t / 1e9 / (TF32_TC_PEAK / 1e12):.4f} of the tf32 peak)")
         if dh == 256 and esize == 2:
             # The K/V tiles a launch loads (from L2: one slab's K and V fit
             # there), from the grid and each block's key-tile range, at this
@@ -1085,8 +1102,9 @@ def phase_flash_attention(dev_info: dict, ptxas: dict, held: dict) -> list[dict]
     log(f"flash_attention per recurrentgemma-9b prefill ({n} launches at {FA_RG_PREFILL}): "
         f"bfloat16 kernel {n * bf['ms']:.6f} ms host-inclusive, {n * bf['device_ms']:.6f} "
         f"device-only, bound {n * bf['bound_ms']:.6f} ms, library {n * bf['library_ms']:.6f}; "
-        f"float32 kernel (FMA on the CUDA cores) {n * f32['ms']:.6f} ms host-inclusive, "
-        f"{n * f32['device_ms']:.6f} device-only, bound {n * f32['bound_ms']:.6f} ms "
+        f"float32 kernel (split tf32 on the tensor cores) {n * f32['ms']:.6f} ms "
+        f"host-inclusive, {n * f32['device_ms']:.6f} device-only, bound "
+        f"{n * f32['bound_ms']:.6f} ms "
         f"({F32_SPLIT} tf32 products for each operation; {fp32_core_ms:.6f} at the float32 "
         f"CUDA-core peak), library {n * f32['library_ms']:.6f}")
     entry256 = {
@@ -1098,7 +1116,8 @@ def phase_flash_attention(dev_info: dict, ptxas: dict, held: dict) -> list[dict]
         "library_ms": n * bf["library_ms"], "ms_per_launch": bf["ms"],
         "device_ms": n * bf["device_ms"], "library_device_ms": n * bf["library_device_ms"],
         "ptxas": ptxas["bfloat16_dh256"], "device_ms_per_launch": bf["device_ms"],
-        "f32_source": "src/repro_torch/csrc/flash_attention.cu", "f32_kernel": "flash_attn_fma256",
+        "f32_source": "src/repro_torch/csrc/flash_attention.cu",
+        "f32_kernel": "flash_attn_tf32<256>",
         "f32_ms": n * f32["ms"], "f32_plain_ms": n * f32["plain_ms"],
         "f32_library_ms": n * f32["library_ms"], "f32_bound_ms": n * f32["bound_ms"],
         "f32_bound_by": f32["bound_by"], "f32_device_ms": n * f32["device_ms"],

@@ -5,7 +5,7 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:79
 //   flash_attention_pallas (body _flash_kernel) -> flash_attn_tf32<DH>
-//   (dh 32, 64, 80, 128) and flash_attn_fma256 (dh 256)
+//   (dh 32, 64, 80, 128 and, with a layout of its own, 256)
 //
 // q (B, Sq, H, dh), k/v (B, Sk, KV, dh), float32, read through their
 // strides (the last dimension contiguous; 16-byte vectors where every base
@@ -98,33 +98,71 @@
 // hand-overs or a tile ahead, or L2 prefetches a tile ahead, dh 128 spilled
 // and ran slower. chip_smoke.py fails the run on a spill.
 //
-// Head dim 256 (recurrentgemma) takes a simpler kernel, flash_attn_fma256:
-// the split design cannot hold q hi + lo for 128 rows (256 KB) in shared
-// memory, nor for 64 rows beside one K slot (128 KB each). It computes the
-// same function in float32 FMA on the CUDA cores (bound at the 67 TFLOP/s
-// float32 peak, 2.2x the three tf32 products' bound), tiled through shared
-// memory: a block of 256 threads owns 64 rows of a slab; q (64 x 256), a
-// K and a V tile of 64 keys and the tile's p (64 x 64) sit in 211 KB.
-// Each thread holds a 4 x 4 block of scores (rows ty + 16 i, keys
-// tx + 16 j: one 16-byte q and k read a row or key serve 16 products) and
-// a 4 x 16 block of O (the same rows, columns 4 tx + 64 jj), so a row's max,
-// sum and rescale live in the 16 threads that own it, reduced by shuffles.
-// Loads are synchronous, with no ring; the same masks, tile skipping and
-// -1e30 bias as above, exp2f in the base-2 domain. A tensor-core design
-// at dh 256 is ROADMAP queue B.
+// Head dim 256 (recurrentgemma-9b: H 16 on KV 1, a 2048-key window) is the
+// instance flash_attn_tf32<256>, with the same split products, masks and
+// softmax and a layout of its own, because shared memory cannot hold q hi +
+// lo for 128 rows (256 KB). What bounds it, at the 8192-token prefill: the
+// inputs need 2.4e11 operations, and the split issues three tf32 products
+// for each, 1.46 ms at the tf32 peak (3.59 ms at the float32 CUDA-core
+// peak). Shared memory comes close: a step of 8 columns of S reads 10 KB
+// for 96 clocks of tf32 work, and every K and V element crosses it four
+// times more (TMA's write, the converter's read, hi and lo). The K/V tiles
+// come from L2 (the slab's 16 MB of K and V stay there), 7.8 GB a launch at
+// 64-row blocks (kernels/flash_attention.py kv_tile_bytes); they are read
+// once, as float32, and split on chip: split copies in device memory would
+// double that. What the layout does:
+// * A block owns 64 rows, with 256 threads: a converter warpgroup and one
+//   consumer warpgroup (255 registers a thread at launch; O alone is 128
+//   float32 registers a consumer thread). The consumer splits q for its 64
+//   rows into hi and lo (128 KB), which stay resident.
+// * A key tile goes through in 16 fills of 8 KB of float32: eight K chunks
+//   of 32 columns (one m64 n128 + m64 n64 pair of products a step, as
+//   above: lo in rows 0..63 and hi in rows 64..127 of a 128-byte swizzled
+//   box) and eight V parts of 8 keys (dh-major rows of 32 bytes, 32-byte
+//   swizzle, so that a k8 step reads whole rows; one m64 n256 k8 product
+//   each for Ph Vh, Ph Vl, Pl Vh). TMA brings each fill into one of four
+//   raw slots (4-D maps over the strided K and V, the 128-byte swizzle for
+//   K, so that a raw K chunk lies as a stage's lo rows), and the converter
+//   splits it into one of four 16 KB stages: 230,528 B with the barriers
+//   and the pad.
+// * Converter warp c owns raw slot c and stage c (fills c, c + 4, ...): it
+//   waits for the fill's bytes, reads them into registers, hands the slot
+//   back (a proxy fence first: TMA's next write must not pass the reads)
+//   and starts the TMA load of its next fill there, then waits for the
+//   stage and stores hi and lo. The four warps' chains of waits overlap:
+//   with one chain for all 128 threads, its mbarrier latencies, not the
+//   split, set the pace (3.7 ms against 2.9 at the prefill). A warp alone
+//   takes each barrier's phases, in order.
+// * The consumer keeps its products in flight: it commits each stage's
+//   products as a group and hands a stage back once the next stage's group
+//   is issued and the stage's own group is done (wait_group 1). p of V part
+//   h + 1 is made while part h's products run. Only the masks, the row
+//   maxima and the rescale of O of each tile run with the tensor cores
+//   idle. The two register sets never overlap in flight: ptxas serializes
+//   every wgmma of the kernel where a non-wgmma instruction touches a
+//   register of one in flight (chip_smoke.py fails on it).
+// * The block plan and the mask rule are flash_plan.cuh's, shared with the
+//   bfloat16 kernel; out = O * (1 / l), one reciprocal a row. K and V need
+//   TMA's alignment (16-byte base and strides; the wrapper checks it); q is
+//   read in 16-byte vectors or single floats, as above.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_plan.cuh"
 #include "hopper.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
 using namespace hopper;
+using flash_plan::Plan;
+using flash_plan::plan_block;
 
 constexpr int kBQ = 128;       // rows (query position, head in group) per block
 constexpr int kBK = 64;        // keys per tile of S = Q K^T
+static_assert(kBK == flash_plan::kKeyTile, "the shared block plan's tiles");
 constexpr int kBV = 16;        // keys per V part (a quarter tile) of O += P V
 constexpr int kVSW = kBV * 4;  // bytes a dh-major v row (16 keys), its swizzle width
 constexpr int kThreads = 384;  // converter warpgroup + two consumer warpgroups
@@ -136,6 +174,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int DH>
 struct Cfg {
   static_assert(DH == 32 || DH == 64 || DH == 80 || DH == 128, "head dim");
+  static constexpr int BQ = kBQ, THREADS = kThreads;
   static constexpr int SW = DH % 32 == 0 ? 128 : 64;  // bytes a swizzled q / k row
   static constexpr uint32_t LAYOUT = SW == 128 ? 1 : 2;
   static constexpr int Q_BYTES = kBQ * DH * 4;  // q hi (or lo), 128 rows
@@ -145,6 +184,33 @@ struct Cfg {
   static constexpr int VS = DH == 128 ? 2 : 4;  // V part slots
   static constexpr int SMEM =
       1024 + 2 * Q_BYTES + KS * 2 * K_BYTES + VS * 2 * V_BYTES + 2 * (KS + VS) * 8;
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// Head dim 256: 64-row blocks of a converter and one consumer warpgroup; q
+// hi + lo stays resident. Each key tile is staged as CHUNKS K chunks (64
+// keys x KC columns) and then PARTS V parts (VK keys): TMA brings each as
+// 8 KB of float32 into a ring of RAWS raw slots, and the converter splits it
+// into a ring of STAGES stages (hi + lo, 16 KB) that the consumer reads.
+template <>
+struct Cfg<256> {
+  static constexpr int BQ = 64, THREADS = 256;
+  static constexpr int SW = 128;                // bytes a swizzled q / k row (32 columns)
+  static constexpr uint32_t LAYOUT = 1;
+  static constexpr int KC = 32;                 // columns of a K chunk: one swizzled row
+  static constexpr int CHUNKS = 256 / KC;       // K chunks a key tile
+  static constexpr int VK = 8;                  // keys of a V part: one 32-byte row
+  static constexpr int PARTS = kBK / VK;        // V parts a key tile
+  static constexpr int ITEMS = CHUNKS + PARTS;  // fills a key tile
+  static constexpr int Q_BYTES = BQ * 256 * 4;  // q hi (or lo)
+  static constexpr int RAW = kBK * KC * 4;      // a fill's float32, K chunk or V part
+  static_assert(RAW == VK * 256 * 4, "a V part is a K chunk's size");
+  static constexpr int V_BYTES = RAW;           // v hi (or lo), one part
+  static constexpr int STAGE = 2 * RAW;         // a fill's hi + lo
+  static constexpr int VBOX = 64;               // columns of a V part's TMA box
+  static constexpr int STAGES = 4, RAWS = 4;
+  static constexpr int SMEM =
+      1024 + 2 * Q_BYTES + STAGES * STAGE + RAWS * RAW + 2 * (STAGES + RAWS) * 8;
   static_assert(SMEM <= 232448, "shared memory");
 };
 
@@ -272,13 +338,12 @@ __device__ __forceinline__ void store_v(uint8_t* slot, const float4 (&y)[NB<DH>]
   }
 }
 
+// Head dims up to 128: 128-row blocks, a converter and two consumer
+// warpgroups (the design at the top).
 template <int DH>
-__global__ void __launch_bounds__(kThreads, 1) flash_attn_tf32(Params p) {
+__device__ __forceinline__ void attend(const Params& p, uint8_t* smem) {
   using C = Cfg<DH>;
   constexpr int CH = DH / 4;  // 16-byte units of a row
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint8_t* Qh = smem;
   uint8_t* Ql = Qh + C::Q_BYTES;
   uint8_t* Kb = Ql + C::Q_BYTES;              // KS slots of (hi, lo)
@@ -561,205 +626,437 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attn_tf32(Params p) {
   }
 }
 
-// ------------------------------------------------- head dim 256, CUDA cores
-constexpr int kF_DH = 256;
-constexpr int kF_BQ = 64;                  // rows a block
-constexpr int kF_BK = 64;                  // keys a tile
-constexpr int kF_THREADS = 256;            // 16 x 16: ty = tid / 16, tx = tid % 16
-constexpr int kF_LD = kF_DH + 4;           // floats a q or k row (padded: no bank conflicts)
-constexpr int kF_PLD = kF_BK + 4;          // floats a p row
-constexpr int kF_SMEM = (kF_BQ * kF_LD + kF_BK * kF_LD + kF_BK * kF_DH + kF_BQ * kF_PLD) * 4;
-static_assert(kF_SMEM <= 232448, "shared memory");
+// ------------------------------------------------------------ head dim 256
+// The pieces of attend256 (the design in the note at the top).
+using C256 = Cfg<256>;
 
-__global__ void __launch_bounds__(kF_THREADS, 1) flash_attn_fma256(Params p) {
-  extern __shared__ float4 fsmem[];
-  float* Qs = reinterpret_cast<float*>(fsmem);
-  float* Ks = Qs + kF_BQ * kF_LD;
-  float* Vs = Ks + kF_BK * kF_LD;
-  float* Ps = Vs + kF_BK * kF_DH;
-  constexpr int CH = kF_DH / 4;  // 16-byte units a row
+// x rounded to tf32 as cvt.rna.tf32.f32 rounds it (half an ulp of tf32
+// added to the magnitude, the low 13 bits cleared; an infinity stays one),
+// in two integer operations where the instruction compiles to four (it
+// also tests for infinity and NaN): the converter splits every K and V
+// element it stages.
+__device__ __forceinline__ float tf32_bits(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
 
-  const int G = p.H / p.KV;
-  const int rows = p.Sq * G;
-  const int tile = gridDim.x - 1 - blockIdx.x;  // heaviest (last) query tiles first
-  const int r0 = tile * kF_BQ;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int q_lo = r0 / G;
-  const int q_hi = (min(r0 + kF_BQ, rows) - 1) / G;
-  const int n_tiles = (p.Sk + kF_BK - 1) / kF_BK;
-  int t_lo = 0, t_hi = n_tiles;
-  const bool all_real = p.sk_true >= 1 && (p.window <= 0 || q_hi < p.sk_true - 1 + p.window);
-  if (all_real) {
-    int k_end = min(p.Sk, p.sk_true);
-    if (p.causal) k_end = min(k_end, q_hi + 1);
-    t_hi = (k_end + kF_BK - 1) / kF_BK;
-    if (p.window > 0) t_lo = max(0, q_lo - p.window + 1) / kF_BK;
-  }
+__device__ __forceinline__ void split4(float4 x, float4& h, float4& l) {
+  h.x = tf32_bits(x.x); l.x = tf32_bits(x.x - h.x);
+  h.y = tf32_bits(x.y); l.y = tf32_bits(x.y - h.y);
+  h.z = tf32_bits(x.z); l.z = tf32_bits(x.z - h.z);
+  h.w = tf32_bits(x.w); l.w = tf32_bits(x.w - h.w);
+}
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  {  // the q tile; rows past Sq * G are zero
-    const float* qb = p.q + b * p.qsb;
-    for (int idx = tid; idx < kF_BQ * CH; idx += kF_THREADS) {
-      const int r = idx / CH, c = idx - r * CH, rr = r0 + r;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (rr < rows) x = load4(qb + (rr / G) * p.qss + (kvh * G + rr % G) * p.qsh + c * 4, p.vec);
-      *reinterpret_cast<float4*>(Qs + r * kF_LD + c * 4) = x;
-    }
-  }
-  int qpos[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) qpos[i] = (r0 + ty + 16 * i) / G;
-  float o[4][16], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kMasked;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) o[i][j] = 0.f;
-  }
-  const float* kb = p.k + b * p.ksb + kvh * p.ksh;
-  const float* vb = p.v + b * p.vsb + kvh * p.vsh;
+// Fill i of a block: key tile t_lo + i / ITEMS; within it, K chunks w = 0
+// .. CHUNKS - 1, then V parts w - CHUNKS, each 8 KB of float32 in a raw
+// slot: a K chunk as TMA writes a box of 32 columns x 64 keys with the
+// 128-byte swizzle (the layout of a stage's lo rows), a V part as four
+// unswizzled boxes of 64 columns x 8 keys. One converter warp splits a
+// fill, 16 16-byte vectors a lane:
+// * K chunk: vector j is key kr + 4 j (kr = lane / 8), columns 4 kc .. + 3
+//   (kc = lane % 8) of the chunk; eight lanes read and store one 128-byte
+//   row. Its offset, in the raw slot and in the stage (lo; hi 64 rows on),
+//   is that of key kr + 4 (j % 2) plus 1 KB for each 8 keys more (which
+//   move no swizzle bit).
+// * V part: vector 8 h + r holds key r at columns 4 dq .. + 3 (dq = lane +
+//   32 h). Unit u of a 32-byte dh-major row holds keys u, u + 2, u + 4,
+//   u + 6: the order 0, 2, 4, 6, 1, 3, 5, 7 that the A fragments call for.
+//   Component c goes to row 4 dq + c. A lane stores its components turned
+//   by (dq % 8) / 2 (component (c + turn) % 4 in its step c), so the eight
+//   lanes of a store's phase write eight distinct 16-byte units: unturned,
+//   their rows 4 apart would share banks.
+// A lane's offsets are its own throughout, so they are set once.
+constexpr int kFillRegs = 16;
+constexpr int kVRow = Cfg<256>::VK * 4;  // bytes a dh-major v row, its swizzle width
 
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * kF_BK;
-    __syncthreads();  // the last tile's K, V and p are read
-    for (int idx = tid; idx < kF_BK * CH; idx += kF_THREADS) {
-      const int r = idx / CH, c = idx - r * CH, kp = k0 + r;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;  // keys past Sk are zeros
-      if (kp < p.Sk) {
-        kx = load4(kb + kp * p.kss + c * 4, p.vec);
-        vx = load4(vb + kp * p.vss + c * 4, p.vec);
-      }
-      *reinterpret_cast<float4*>(Ks + r * kF_LD + c * 4) = kx;
-      *reinterpret_cast<float4*>(Vs + r * kF_DH + c * 4) = vx;
-    }
-    __syncthreads();
+struct Lanes {
+  int turn;
+  uint32_t k_off[2], v_raw, v_off[4];
+};
 
-    float sc[4][4];
+__device__ __forceinline__ Lanes lanes256(int lane) {
+  const int kc = lane % 8;
+  Lanes ln;
+  ln.turn = (lane % 8) / 2;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int m = 0; m < 2; ++m) ln.k_off[m] = kmajor<C256::SW>(2 * kBK, lane / 8 + 4 * m, kc);
+  ln.v_raw = (lane / 16) * (C256::VK * C256::VBOX * 4) + (lane % 16) * 16;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < kF_DH; c += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * kF_LD + c);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * kF_LD + c);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = sc[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          sc[i][j] = fmaf(qv[i].w, kv[j].w, a);
-        }
-    }
+  for (int c = 0; c < 4; ++c)
+    ln.v_off[c] = swizzle<kVRow>((4 * lane + (c + ln.turn) % 4) * kVRow);
+  return ln;
+}
 
-    const int k_last = k0 + kF_BK - 1;
-    const bool need_mask = k_last >= p.Sk || k_last >= p.sk_true ||
-                           (p.causal && k_last > q_lo) ||
-                           (p.window > 0 && q_hi - k0 >= p.window);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = sc[i][j] * p.scale_log2;
-        if (need_mask) {
-          const int kp = k0 + tx + 16 * j;
-          if (kp >= p.Sk) {
-            x = -INFINITY;  // past the tensor: not a key at all
-          } else {
-            bool ok = kp < p.sk_true;
-            if (p.causal) ok = ok && qpos[i] >= kp;
-            if (p.window > 0) ok = ok && (qpos[i] - kp) < p.window;
-            if (!ok) x = kMasked;
-          }
-        }
-        sc[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = exp2f(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= corr;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) o[i][j] *= corr;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pj = exp2f(sc[i][j] - m_new);
-        l[i] += pj;
-        Ps[(ty + 16 * i) * kF_PLD + tx + 16 * j] = pj;
-      }
-    }
-    __syncthreads();
+__device__ __forceinline__ float4 ld_shared_v4(uint32_t addr) {
+  float4 x;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(addr)
+               : "memory");
+  return x;
+}
 
-    // O += P V: rows ty + 16 i, columns 4 tx + 64 jj .. + 3.
-#pragma unroll 4
-    for (int kk = 0; kk < kF_BK; ++kk) {
-      float pr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = Ps[(ty + 16 * i) * kF_PLD + kk];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float4 vv = *reinterpret_cast<const float4*>(Vs + kk * kF_DH + 4 * tx + 64 * jj);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          o[i][4 * jj + 0] = fmaf(pr[i], vv.x, o[i][4 * jj + 0]);
-          o[i][4 * jj + 1] = fmaf(pr[i], vv.y, o[i][4 * jj + 1]);
-          o[i][4 * jj + 2] = fmaf(pr[i], vv.z, o[i][4 * jj + 2]);
-          o[i][4 * jj + 3] = fmaf(pr[i], vv.w, o[i][4 * jj + 3]);
-        }
-      }
-    }
-  }
+// x turned left by r (0..3): component c of the result is x's (c + r) % 4.
+__device__ __forceinline__ float4 turn4(float4 x, int r) {
+  if (r & 1) x = make_float4(x.y, x.z, x.w, x.x);
+  if (r & 2) x = make_float4(x.z, x.w, x.x, x.y);
+  return x;
+}
 
+// A fill's vectors from its raw slot.
+__device__ __forceinline__ void read_fill(float4 (&x)[kFillRegs], uint32_t raw, const Lanes& ln,
+                                          int w) {
+  if (w < C256::CHUNKS) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+    for (int j = 0; j < kFillRegs; ++j) x[j] = ld_shared_v4(raw + ln.k_off[j % 2] + 1024 * (j / 2));
+  } else {
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
-    const int rr = r0 + ty + 16 * i;
-    if (rr >= rows) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    float* orow = p.o + ((static_cast<long long>(b) * p.Sq + rr / G) * p.H + kvh * G + rr % G) *
-                            kF_DH;
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-      *reinterpret_cast<float4*>(orow + 4 * tx + 64 * jj) =
-          make_float4(o[i][4 * jj] / den, o[i][4 * jj + 1] / den, o[i][4 * jj + 2] / den,
-                      o[i][4 * jj + 3] / den);
+      for (int r = 0; r < C256::VK; ++r)
+        x[8 * h + r] = ld_shared_v4(raw + ln.v_raw + h * 2 * (C256::VK * C256::VBOX * 4) +
+                                    r * C256::VBOX * 4);
   }
 }
 
-int launch_fma256(const Params& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_fma256,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kF_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int G = p.H / p.KV;
-  const long long tiles = (static_cast<long long>(p.Sq) * G + kF_BQ - 1) / kF_BQ;
-  dim3 grid(static_cast<unsigned>(tiles), p.KV, p.B);
-  flash_attn_fma256<<<grid, kF_THREADS, kF_SMEM, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+// A K chunk's stage holds lo in rows 0..63 and hi in rows 64..127 of one box
+// of 32 columns (128-byte swizzled rows), as a K slot of the smaller head
+// dims does for each box of its tile; a V part's, hi and then lo (32-byte
+// swizzled dh-major rows; 32 columns on, 4 KB on).
+__device__ __forceinline__ void store_fill(uint32_t stage, const float4 (&x)[kFillRegs],
+                                           const Lanes& ln, int w) {
+  float4 h, l;
+  if (w < C256::CHUNKS) {
+#pragma unroll
+    for (int j = 0; j < kFillRegs; ++j) {
+      const uint32_t off = ln.k_off[j % 2] + 1024 * (j / 2);
+      split4(x[j], h, l);
+      st_shared_v4(stage + kBK * C256::SW + off, h);
+      st_shared_v4(stage + off, l);
+    }
+  } else {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        // keys u, u + 2, u + 4, u + 6 of this lane's columns
+        const float4 y[4] = {turn4(x[8 * hh + u], ln.turn), turn4(x[8 * hh + u + 2], ln.turn),
+                             turn4(x[8 * hh + u + 4], ln.turn),
+                             turn4(x[8 * hh + u + 6], ln.turn)};
+        const float4 cols[4] = {make_float4(y[0].x, y[1].x, y[2].x, y[3].x),
+                                make_float4(y[0].y, y[1].y, y[2].y, y[3].y),
+                                make_float4(y[0].z, y[1].z, y[2].z, y[3].z),
+                                make_float4(y[0].w, y[1].w, y[2].w, y[3].w)};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          split4(cols[c], h, l);
+          // Unit u of the row; 32 rows (128 columns) on for hh = 1. The
+          // 32-byte swizzle flips the unit on every other group of 4 rows.
+          const uint32_t off = (ln.v_off[c] ^ (u * 16)) + hh * 32 * 4 * kVRow;
+          st_shared_v4(stage + off, h);
+          st_shared_v4(stage + C256::V_BYTES + off, l);
+        }
+      }
+    }
+  }
+}
+
+// Rows r0 .. r0 + 63 of the slab into q hi and lo, K-major (eight boxes of 32
+// columns; rows past Sq * G zero), by the consumer warpgroup (tid 0..127),
+// half of a thread's loads in flight at a time.
+__device__ __forceinline__ void load_q256(uint32_t Qh, uint32_t Ql, const Params& p,
+                                          const Plan& pl, int tid) {
+  constexpr int CH = 256 / 4, PER = C256::BQ * CH / 128, HALF = PER / 2;
+  const float* qb = p.q + pl.b * p.qsb;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float4 x[HALF];
+#pragma unroll
+    for (int j = 0; j < HALF; ++j) {
+      const int idx = tid + 128 * (half * HALF + j), r = idx / CH, c = idx - r * CH;
+      const int rr = pl.r0 + r;
+      x[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (rr < pl.rows) {
+        const int qp = rr / pl.G, h = pl.kvh * pl.G + rr % pl.G;
+        x[j] = load4(qb + qp * p.qss + h * p.qsh + c * 4, p.vec);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < HALF; ++j) {
+      const int idx = tid + 128 * (half * HALF + j), r = idx / CH, c = idx - r * CH;
+      const uint32_t off = kmajor<C256::SW>(C256::BQ, r, c);
+      float4 h, l;
+      split4(x[j], h, l);
+      st_shared_v4(Qh + off, h);
+      st_shared_v4(Ql + off, l);
+    }
+  }
+}
+
+// The block (the design in the note at the top): fill i goes through raw
+// slot and stage i % 4; "full" counts the 32 lanes of the converter warp
+// that owns the stage, "empty" one arrival per consumer warp, "raw_full"
+// the TMA's bytes and "raw_empty" the owning warp's lanes.
+__device__ __forceinline__ void attend256(const CUtensorMap& kmap, const CUtensorMap& vmap,
+                                          const Params& p, uint8_t* smem) {
+  using C = C256;
+  uint8_t* Qh = smem;
+  uint8_t* Ql = Qh + C::Q_BYTES;
+  uint8_t* ring = Ql + C::Q_BYTES;
+  uint8_t* raw = ring + C::STAGES * C::STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(raw + C::RAWS * C::RAW);
+  uint64_t* empty = full + C::STAGES;
+  uint64_t* raw_full = empty + C::STAGES;
+  uint64_t* raw_empty = raw_full + C::RAWS;
+  const uint32_t ring_base = smem_addr(ring), raw_base = smem_addr(raw);
+  const Plan pln = plan_block<C::BQ>(p);
+  const int fills = C::ITEMS * (pln.t_hi - pln.t_lo);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 32);  // the converter warp that owns the stage
+      mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    for (int r = 0; r < C::RAWS; ++r) {
+      mbar_init(&raw_full[r], 1);    // the TMA's bytes
+      mbar_init(&raw_empty[r], 32);  // the lanes of the warp that owns the slot
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kConv) {
+    // Converter: warp c owns raw slot c and stage c, so it converts fills c,
+    // c + 4, ...: it waits for a fill's TMA bytes, reads them into
+    // registers, starts the TMA load of its next fill into the slot, waits
+    // for the consumer to hand the stage back, and splits the fill into it.
+    // The four warps' waits overlap, and each barrier's phases are taken in
+    // order by the one warp that owns it.
+    static_assert(C::RAWS == 4 && C::STAGES == 4, "a warp a raw slot and a stage");
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const Lanes ln = lanes256(lane);
+    auto issue = [&](int i) {  // lane 0: fill i's TMA load into raw slot i % RAWS
+      const int r = i % C::RAWS, w = i % C::ITEMS, k0 = (pln.t_lo + i / C::ITEMS) * kBK;
+      mbar_expect_tx(&raw_full[r], C::RAW);
+      uint8_t* dst = raw + r * C::RAW;
+      if (w < C::CHUNKS) {
+        tma_load_4d(dst, &kmap, &raw_full[r], w * C::KC, pln.kvh, k0, pln.b);
+      } else {
+#pragma unroll
+        for (int bx = 0; bx < 256 / C::VBOX; ++bx)
+          tma_load_4d(dst + bx * C::VK * C::VBOX * 4, &vmap, &raw_full[r], bx * C::VBOX,
+                      pln.kvh, k0 + (w - C::CHUNKS) * C::VK, pln.b);
+      }
+    };
+    if (lane == 0 && warp < fills) issue(warp);
+    float4 x[kFillRegs];
+    for (int i = warp; i < fills; i += C::STAGES) {
+      const int w = i % C::ITEMS;
+      mbar_wait(&raw_full[warp], (i / C::RAWS) & 1);
+      read_fill(x, raw_base + warp * C::RAW, ln, w);
+      fence_proxy_async();            // the reads before the next TMA write of the slot
+      mbar_arrive(&raw_empty[warp]);  // the lane's reads of the raw slot are done
+      if (lane == 0 && i + C::RAWS < fills) {
+        mbar_wait(&raw_empty[warp], (i / C::RAWS) & 1);
+        issue(i + C::RAWS);
+      }
+      mbar_wait(&empty[warp], ((i / C::STAGES) & 1) ^ 1);
+      store_fill(ring_base + warp * C::STAGE, x, ln, w);
+      fence_proxy_async();
+      mbar_arrive(&full[warp]);
+    }
+    return;
+  }
+
+  // Consumer: the block's 64 rows, warp w rows 16 w .. 16 w + 15.
+  const int tid = threadIdx.x - kConv;
+  load_q256(smem_addr(Qh), smem_addr(Ql), p, pln, tid);
+  fence_proxy_async();
+  bar_sync(1, 128);  // the consumer warpgroup's q is in place
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = pln.r0 + warp * 16 + lane / 4;  // and row0 + 8
+  const int qpos[2] = {row0 / pln.G, (row0 + 8) / pln.G};
+  const int col = (lane % 4) * 2;  // within each 8-column group
+  uint32_t qh_base = smem_addr(Qh), ql_base = smem_addr(Ql);
+  constexpr uint32_t SBO = 8 * C::SW / 16;    // 8 rows of q or k
+  constexpr uint32_t V_SBO = 8 * kVRow / 16;  // 8 rows (head-dim columns) of v
+
+  float o[128];
+#pragma unroll
+  for (int j = 0; j < 128; ++j) o[j] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+
+  int i = 0;  // stage fills consumed
+  for (int t = pln.t_lo; t < pln.t_hi; ++t) {
+    asm volatile("" : "+r"(qh_base), "+r"(ql_base));
+
+    // S = Qh Kh + (Qh Kl + Ql Kh), a K chunk (4 steps of 8 columns) a stage.
+    float sc[kBK / 2], small[kBK / 2];
+#pragma unroll
+    for (int j = 0; j < kBK / 2; ++j) sc[j] = small[j] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < C::CHUNKS; ++c, ++i) {
+      const int s = i % C::STAGES;
+      mbar_wait(&full[s], (i / C::STAGES) & 1);
+      const uint32_t k_base = ring_base + s * C::STAGE;
+#pragma unroll
+      for (int kk = 0; kk < C::KC / 8; ++kk) {
+        const int g = c * (C::KC / 8) + kk;  // step along dh
+        const uint32_t qo = (g * 32 / C::SW) * (C::BQ * C::SW) + g * 32 % C::SW;
+        const uint32_t ko = k_base + kk * 32;
+        const uint64_t qh = make_desc(qh_base + qo, 1, SBO, C::LAYOUT);
+        const uint64_t ql = make_desc(ql_base + qo, 1, SBO, C::LAYOUT);
+        const uint64_t klh = make_desc(ko, 1, SBO, C::LAYOUT);               // [Kl; Kh]
+        const uint64_t kh = make_desc(ko + kBK * C::SW, 1, SBO, C::LAYOUT);  // Kh
+        wgmma_tf32_ss_n128(small, sc, qh, klh, g > 0);  // Qh Kl, Qh Kh
+        wgmma_tf32_ss_n64(small, ql, kh, 1);            // + Ql Kh
+      }
+      wgmma_commit();
+      if (c > 0) {  // the chunk before is done
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(&empty[(i - 1) % C::STAGES]);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(small);
+    if (lane == 0) mbar_arrive(&empty[(i - 1) % C::STAGES]);
+#pragma unroll
+    for (int j = 0; j < kBK / 2; ++j) sc[j] += small[j];
+
+    // Masks, only where some row of the block needs one.
+    const int k0 = t * kBK;
+    const bool need_mask = FA_TILE_NEEDS_MASK(p, pln.q_lo, pln.q_hi, k0);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kBK / 2; ++j) {
+      const int half = (j >> 1) & 1;
+      float x = sc[j] * p.scale_log2;
+      if (need_mask) {
+        const int kp = k0 + (j >> 2) * 8 + col + (j & 1);
+        if (kp >= p.Sk) {
+          x = -INFINITY;  // past the tensor: not a key at all
+        } else {
+          const int qp = qpos[half];
+          bool ok = kp < p.sk_true;
+          if (p.causal) ok = ok && qp >= kp;
+          if (p.window > 0) ok = ok && (qp - kp) < p.window;
+          if (!ok) x = kMasked;
+        }
+      }
+      sc[j] = x;
+      mx[half] = fmaxf(mx[half], x);
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      corr[h] = ex2(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < 128; ++j) o[j] *= corr[(j >> 1) & 1];
+    }
+
+    // p of one V part (8 keys), split, in the A fragment's order (see the
+    // dh <= 128 body; V's rows are stored to match). Part h + 1's p is made
+    // while part h's products run, in the other of two fragment buffers.
+    auto p_part = [&](uint32_t (&ph)[4], uint32_t (&pl)[4], int g) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int j = 4 * g + ((r & 1) << 1) + (r >> 1);
+        const float pj = ex2(sc[j] - m[r & 1]);
+        l[r & 1] += pj;
+        const float hi = tf32_bits(pj);
+        ph[r] = __float_as_uint(hi);
+        pl[r] = __float_as_uint(tf32_bits(pj - hi));
+      }
+    };
+    uint32_t ph[2][4], pl[2][4];
+    p_part(ph[0], pl[0], 0);
+
+    // O += Ph Vh + Ph Vl + Pl Vh, a V part (one step of 8 keys) a stage.
+#pragma unroll
+    for (int h = 0; h < C::PARTS; ++h, ++i) {
+      const int s = i % C::STAGES;
+      mbar_wait(&full[s], (i / C::STAGES) & 1);
+      const uint32_t v_base = ring_base + s * C::STAGE;
+      const uint64_t vh = make_desc(v_base, 1, V_SBO, 3);  // 32-byte swizzle
+      const uint64_t vl = make_desc(v_base + C::V_BYTES, 1, V_SBO, 3);
+      wgmma_fence();
+      wgmma_tf32_rs_n256(o, ph[h % 2], vh);
+      wgmma_tf32_rs_n256(o, ph[h % 2], vl);
+      wgmma_tf32_rs_n256(o, pl[h % 2], vh);
+      wgmma_commit();
+      if (h > 0) {  // the part before is done, and its fragment buffer free
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(&empty[(i - 1) % C::STAGES]);
+      }
+      if (h + 1 < C::PARTS) p_part(ph[(h + 1) % 2], pl[(h + 1) % 2], h + 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(&empty[(i - 1) % C::STAGES]);
+  }
+
+  // out = O / l: one reciprocal a row, then products.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int rr = row0 + 8 * h;
+    if (rr >= pln.rows) continue;
+    const int head = pln.kvh * pln.G + rr % pln.G;
+    const float inv = 1.f / fmaxf(l[h], 1e-30f);
+    float* orow = p.o + ((static_cast<long long>(pln.b) * p.Sq + rr / pln.G) * p.H + head) * 256;
+#pragma unroll
+    for (int g = 0; g < 256 / 8; ++g)
+      *reinterpret_cast<float2*>(orow + g * 8 + col) =
+          make_float2(o[g * 4 + 2 * h] * inv, o[g * 4 + 2 * h + 1] * inv);
+  }
+}
+
+// The TMA maps of K and V are read only at head dim 256.
+template <int DH>
+__global__ void __launch_bounds__(Cfg<DH>::THREADS, 1)
+    flash_attn_tf32(const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  if constexpr (DH == 256) {
+    attend256(kmap, vmap, p, smem);
+  } else {
+    attend<DH>(p, smem);
+  }
 }
 
 template <int DH>
 int launch(const Params& p, cudaStream_t stream) {
   using C = Cfg<DH>;
+  CUtensorMap kmap{}, vmap{};
+  if constexpr (DH == 256) {
+    // K chunks: boxes of 32 columns x 64 keys, 128-byte swizzle; V parts:
+    // boxes of 64 columns x 8 keys, unswizzled.
+    int rc = tensor_map::make_map(&kmap, p.k, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p.B, p.Sk, p.KV,
+                                  DH, p.ksb, p.kss, p.ksh, C::KC, kBK,
+                                  CU_TENSOR_MAP_SWIZZLE_128B);
+    if (rc != 0) return rc;
+    rc = tensor_map::make_map(&vmap, p.v, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p.B, p.Sk, p.KV, DH,
+                              p.vsb, p.vss, p.vsh, C::VBOX, C::VK, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (rc != 0) return rc;
+  }
   cudaError_t err = cudaFuncSetAttribute(flash_attn_tf32<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int G = p.H / p.KV;
-  const long long tiles = (static_cast<long long>(p.Sq) * G + kBQ - 1) / kBQ;
+  const long long tiles = (static_cast<long long>(p.Sq) * G + C::BQ - 1) / C::BQ;
   dim3 grid(static_cast<unsigned>(tiles), p.KV, p.B);
-  flash_attn_tf32<DH><<<grid, kThreads, C::SMEM, stream>>>(p);
+  flash_attn_tf32<DH><<<grid, C::THREADS, C::SMEM, stream>>>(kmap, vmap, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -781,12 +1078,15 @@ extern "C" int flash_attention_smem_bytes(int dh) {
     case 64: return Cfg<64>::SMEM;
     case 80: return Cfg<80>::SMEM;
     case 128: return Cfg<128>::SMEM;
-    case 256: return kF_SMEM;
+    case 256: return Cfg<256>::SMEM;
     default: return 0;
   }
 }
 
-// float32 q, k, v and out. Returns the CUDA error of the launch (0 on success).
+// float32 q, k, v and out. Returns 0 on success, a CUDA error code (> 0)
+// from the launch or, at head dim 256 (K and V read by TMA), -1 when the
+// driver has no TMA encoder or -1000 - r when a tensor map is refused with
+// driver result r.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int Sq, int Sk, int H, int KV, int dh,
                                    long long qsb, long long qss, long long qsh,
@@ -809,7 +1109,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     case 64: return launch<64>(p, s);
     case 80: return launch<80>(p, s);
     case 128: return launch<128>(p, s);
-    case 256: return launch_fma256(p, s);
+    case 256: return launch<256>(p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

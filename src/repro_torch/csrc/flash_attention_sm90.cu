@@ -90,19 +90,20 @@
 //   max passes it by more than 8 (base 2), so most tiles skip the rescale
 //   of O's 128 registers (p <= 2^8 until then; out = O / l is unchanged).
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_plan.cuh"
 #include "hopper.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
 using namespace hopper;
 
-constexpr int kBK = 64;        // keys per tile
+constexpr int kBK = flash_plan::kKeyTile;  // keys per tile
 constexpr int kStages = 3;     // K/V ring depth below head dim 256
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -159,52 +160,10 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
 }
 
 // ------------------------------------------------------------ block plan
-// A block's rows and the key tiles it sweeps, for every head dim. Row r of
-// the (batch, KV head) slab is query position r / G of head kvh * G + r % G.
-struct Plan {
-  int G, rows, r0, kvh, b;
-  int q_lo, q_hi;  // the block's first and last query positions
-  int t_lo, t_hi;  // key tiles t_lo .. t_hi - 1
-};
-
-// As in flash_attention.cu, the tiles masked for all rows are skipped only
-// when every row of the block has a real key: at least one key below
-// sk_true and, with a window, the last position still reaching key
-// sk_true - 1 (then the sweep over them would be wiped by corr = 0).
-// kernels/flash_attention.py `key_tiles` mirrors this.
-template <int BQ>
-__device__ __forceinline__ Plan plan_block(const Params& p) {
-  Plan pl;
-  pl.G = p.H / p.KV;
-  pl.rows = p.Sq * pl.G;
-  const int tile = gridDim.x - 1 - blockIdx.x;  // heaviest (last) query tiles first
-  pl.r0 = tile * BQ;
-  pl.kvh = blockIdx.y;
-  pl.b = blockIdx.z;
-  pl.q_lo = pl.r0 / pl.G;
-  pl.q_hi = (min(pl.r0 + BQ, pl.rows) - 1) / pl.G;
-  const int n_tiles = (p.Sk + kBK - 1) / kBK;
-  pl.t_lo = 0;
-  pl.t_hi = n_tiles;
-  const bool all_real = p.sk_true >= 1 && (p.window <= 0 || pl.q_hi < p.sk_true - 1 + p.window);
-  if (all_real) {
-    int k_end = min(p.Sk, p.sk_true);
-    if (p.causal) k_end = min(k_end, pl.q_hi + 1);
-    pl.t_hi = (k_end + kBK - 1) / kBK;
-    if (p.window > 0) pl.t_lo = max(0, pl.q_lo - p.window + 1) / kBK;
-  }
-  return pl;
-}
-
-// Whether some row of a block with query positions q_lo .. q_hi needs a
-// mask on the key tile starting at key k0: the diagonal, the window's edge,
-// keys past sk_true or Sk (kernels/flash_attention.py `tile_needs_mask`
-// mirrors this). A macro, so that the head dims up to 128 keep the rule
-// inline in their loop: as an inline function it changed their register
-// allocation and cost them about 0.5 % (launch/bench_flash.py in turns).
-#define FA_TILE_NEEDS_MASK(p, q_lo, q_hi, k0)                                                \
-  ((k0) + kBK - 1 >= (p).Sk || (k0) + kBK - 1 >= (p).sk_true ||                              \
-   ((p).causal && (k0) + kBK - 1 > (q_lo)) || ((p).window > 0 && (q_hi) - (k0) >= (p).window))
+// The block plan and the mask rule (flash_plan.cuh) are shared by every
+// head dim here and by the float32 kernel at head dim 256.
+using flash_plan::Plan;
+using flash_plan::plan_block;
 
 __device__ __forceinline__ bool tile_needs_mask(const Params& p, const Plan& pl, int t) {
   return FA_TILE_NEEDS_MASK(p, pl.q_lo, pl.q_hi, t * kBK);
@@ -695,52 +654,6 @@ __global__ void __launch_bounds__(Cfg<DH>::THREADS, 1)
 }
 
 // ----------------------------------------------------------------- host side
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A 4-D map (dh, heads, positions, batch) over a (B, S, heads, dh) view with
-// element strides sb, ss, sh; boxes of `box` columns, one head, kBK
-// positions. A dimension of size 1 takes a natural stride (its coordinate is
-// always 0), so views that torch gives any stride there are accepted.
-int make_map(CUtensorMap* map, const void* base, int B, int S, int heads, int dh, long long sb,
-             long long ss, long long sh, int box, CUtensorMapSwizzle swz) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return -1;
-  if (heads == 1) sh = dh;
-  if (B == 1) sb = ss * S;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t boxes[4] = {static_cast<cuuint32_t>(box), 1, kBK, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                      strides, boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(r);
-}
-
 template <int DH>
 int launch(const Params& p, const void* k, const void* v, long long ksb, long long kss,
            long long ksh, long long vsb, long long vss, long long vsh, cudaStream_t stream) {
@@ -749,9 +662,11 @@ int launch(const Params& p, const void* k, const void* v, long long ksb, long lo
                                  : C::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                : CU_TENSOR_MAP_SWIZZLE_32B;
   CUtensorMap kmap, vmap;
-  int rc = make_map(&kmap, k, p.B, p.Sk, p.KV, DH, ksb, kss, ksh, C::BOX, swz);
+  int rc = tensor_map::make_map(&kmap, k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.B, p.Sk, p.KV,
+                                DH, ksb, kss, ksh, C::BOX, kBK, swz);
   if (rc != 0) return rc;
-  rc = make_map(&vmap, v, p.B, p.Sk, p.KV, DH, vsb, vss, vsh, C::BOX, swz);
+  rc = tensor_map::make_map(&vmap, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.B, p.Sk, p.KV, DH,
+                            vsb, vss, vsh, C::BOX, kBK, swz);
   if (rc != 0) return rc;
   cudaError_t err = cudaFuncSetAttribute(flash_attn_sm90<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);

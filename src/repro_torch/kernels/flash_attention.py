@@ -18,18 +18,22 @@ float32   ``csrc/flash_attention.cu``      rtol 1e-4, atol 2e-5: the
           (wgmma on the tf32 tensor        reference's tolerance, which one
           cores, every operand split into  tf32 product would miss
           tf32 hi + lo: three products
-          for each; at dh 256 float32
-          FMA on the CUDA cores)
+          for each)
 ========  ===============================  =====================================
 
-At head dim 256 (recurrentgemma) the bfloat16 kernel keeps its 128-row
-blocks and runs a schedule of its own (``setmaxnreg``, two consumer
-warpgroups taking turns on the tensor cores, a 2-stage ring of K and V
-tiles), and the float32 route a simpler kernel on the CUDA cores: the
-split-tf32 layout does not fit in shared memory there. :func:`key_tiles`
-mirrors the key tiles each block of the bfloat16 kernel sweeps,
-:func:`tile_needs_mask` the tiles on which it applies the masks, and
-:func:`kv_tile_bytes` the K/V bytes a launch reads from them.
+At head dim 256 (recurrentgemma) both routes take a layout of their own.
+The bfloat16 kernel keeps its 128-row blocks and runs two consumer
+warpgroups taking turns on the tensor cores (``setmaxnreg``, a 2-stage ring
+of K and V tiles). The float32 kernel, ``flash_attn_tf32<256>``, keeps the
+split products on blocks of 64 rows (:data:`F32_DH256_BLOCK_ROWS`: q hi + lo
+for 128 rows would not fit in shared memory) with a converter and one
+consumer warpgroup: TMA brings K and V as float32, in chunks of 32 columns
+and parts of 8 keys, and each converter warp splits the fills of its own
+stage, so K and V need TMA's 16-byte alignment there too. Both sweep the
+key tiles of one block plan (``csrc/flash_plan.cuh``): :func:`key_tiles`
+mirrors the tiles each block sweeps, :func:`tile_needs_mask` the tiles on
+which it applies the masks, and :func:`kv_tile_bytes` the K/V bytes a
+launch reads from them.
 
 The wrapper takes a kernel for CUDA tensors and the plain version of
 ``ref.py`` for CPU tensors. A CUDA input that its route's kernel cannot take
@@ -66,7 +70,8 @@ from . import ref
 from ._build import load_library
 from .dequant_matmul import _on_cpu
 
-__all__ = ["BLOCK_ROWS", "HEAD_DIMS", "KEY_TILE", "ROUTES", "FlashAttentionFn",
+__all__ = ["BLOCK_ROWS", "F32_DH256_BLOCK_ROWS", "HEAD_DIMS", "KEY_TILE", "ROUTES",
+           "FlashAttentionFn",
            "flash_attention", "key_tiles", "kv_tile_bytes", "launches", "launches_dh256",
            "tile_needs_mask"]
 
@@ -87,18 +92,24 @@ HEAD_DIMS = (32, 64, 80, 128, 256)
 
 #: Rows of a (batch, KV head) slab that a block of the bfloat16 kernel owns
 #: (row r is query position r // G of head kv * G + r % G), and keys a K/V
-#: tile (``Cfg<DH>::BQ`` and ``kBK`` in ``csrc/flash_attention_sm90.cu``).
+#: tile (``Cfg<DH>::BQ`` in ``csrc/flash_attention_sm90.cu``, ``kKeyTile``
+#: in ``csrc/flash_plan.cuh``).
 BLOCK_ROWS, KEY_TILE = 128, 64
+
+#: Rows a block of the float32 kernel owns at head dim 256 (``Cfg<256>::BQ``
+#: in ``csrc/flash_attention.cu``).
+F32_DH256_BLOCK_ROWS = 64
 
 _libs: dict[str, ctypes.CDLL] = {}
 
 
 def key_tiles(sq: int, sk: int, g: int, *, causal: bool, window: int = 0, sk_true=None,
               block_rows: int = BLOCK_ROWS) -> np.ndarray:
-    """The key tiles ``[t_lo, t_hi)`` each block of the bfloat16 kernel
-    sweeps, as an (n_blocks, 2) array in row order (block i owns rows
-    ``i * block_rows`` onwards of a slab of ``sq * g`` rows); mirrors
-    ``plan_block`` in ``csrc/flash_attention_sm90.cu``, with ``sk_true`` as
+    """The key tiles ``[t_lo, t_hi)`` each block sweeps, as an (n_blocks,
+    2) array in row order (block i owns rows ``i * block_rows`` onwards of a
+    slab of ``sq * g`` rows): the bfloat16 kernel at :data:`BLOCK_ROWS`, the
+    float32 kernel at head dim 256 at :data:`F32_DH256_BLOCK_ROWS`. Mirrors
+    ``plan_block`` in ``csrc/flash_plan.cuh``, with ``sk_true`` as
     :func:`flash_attention` passes it (at most ``sk``).
 
     A block skips the tiles masked for all its rows only when every row has
@@ -123,11 +134,12 @@ def key_tiles(sq: int, sk: int, g: int, *, causal: bool, window: int = 0, sk_tru
 
 def tile_needs_mask(q_lo: int, q_hi: int, t: int, sk: int, *, causal: bool, window: int = 0,
                     sk_true=None) -> bool:
-    """Whether the bfloat16 kernel masks key tile ``t`` for a block whose
+    """Whether a kernel of the shared block plan (the bfloat16 kernel, the
+    float32 kernel at head dim 256) masks key tile ``t`` for a block whose
     rows hold query positions ``q_lo .. q_hi``: some key of the tile lies
     past ``sk`` or ``sk_true``, after some row's position (causal) or a
     window or more before it. Mirrors ``FA_TILE_NEEDS_MASK`` in
-    ``csrc/flash_attention_sm90.cu``; the kernel skips the masks elsewhere."""
+    ``csrc/flash_plan.cuh``; the kernels skip the masks elsewhere."""
     sk_true = sk if sk_true is None else min(sk, int(sk_true))
     k0 = t * KEY_TILE
     k_last = k0 + KEY_TILE - 1
@@ -136,13 +148,15 @@ def tile_needs_mask(q_lo: int, q_hi: int, t: int, sk: int, *, causal: bool, wind
 
 
 def kv_tile_bytes(b: int, sq: int, sk: int, h: int, kv: int, dh: int, *, causal: bool,
-                  window: int = 0, sk_true=None, block_rows: int = BLOCK_ROWS) -> int:
-    """Bytes of K and V tiles (bfloat16, whole tiles) that the blocks of one
-    launch load, from the grid and :func:`key_tiles`: each block of each
-    (batch, KV head) slab loads its tiles' K and V once."""
+                  window: int = 0, sk_true=None, block_rows: int = BLOCK_ROWS,
+                  elem_bytes: int = 2) -> int:
+    """Bytes of K and V tiles (whole tiles of ``elem_bytes`` elements: 2 for
+    bfloat16, 4 for float32) that the blocks of one launch load, from the
+    grid and :func:`key_tiles`: each block of each (batch, KV head) slab
+    loads its tiles' K and V once."""
     plan = key_tiles(sq, sk, h // kv, causal=causal, window=window, sk_true=sk_true,
                      block_rows=block_rows)
-    return int((plan[:, 1] - plan[:, 0]).sum()) * b * kv * 2 * KEY_TILE * dh * 2
+    return int((plan[:, 1] - plan[:, 0]).sum()) * b * kv * 2 * KEY_TILE * dh * elem_bytes
 
 
 def _library(route: str) -> ctypes.CDLL:
@@ -161,16 +175,19 @@ def _library(route: str) -> ctypes.CDLL:
     return lib
 
 
-def _check_tma(q, k, v) -> None:
-    """The bfloat16 kernel loads K/V by TMA and q in 16-byte vectors: base
-    pointers and the strides of dimensions longer than 1 must be multiples
-    of 16 bytes (8 elements)."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        bad = [d for d in range(3) if t.shape[d] > 1 and t.stride(d) % 8]
+def _check_tma(**tensors) -> None:
+    """Tensors that a kernel loads by TMA (K and V: both routes at head dim
+    256, the bfloat16 route throughout, which also loads q in 16-byte
+    vectors) need a 16-byte aligned base and the strides of dimensions
+    longer than 1 in multiples of 16 bytes."""
+    for name, t in tensors.items():
+        step = 16 // t.element_size()
+        bad = [d for d in range(3) if t.shape[d] > 1 and t.stride(d) % step]
         if t.data_ptr() % 16 or bad:
-            raise ValueError(f"flash_attention: bfloat16 {name} needs a 16-byte aligned base "
-                             f"and strides in multiples of 8 elements (TMA); got offset "
-                             f"{t.data_ptr() % 16} bytes, strides {tuple(t.stride())}")
+            raise ValueError(f"flash_attention: {str(t.dtype).removeprefix('torch.')} {name} "
+                             f"needs a 16-byte aligned base and strides in multiples of {step} "
+                             f"elements (TMA); got offset {t.data_ptr() % 16} bytes, strides "
+                             f"{tuple(t.stride())}")
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, sk_true=None):
@@ -181,7 +198,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, sk_true=None):
     ``window > 0``, ``q_pos - k_pos < window``; masked scores take the
     bias -1e30. Returns (B, Sq, H, dh) in q's dtype. CUDA tensors (float32
     or bfloat16, one dtype, dh in ``HEAD_DIMS``, last dimension contiguous;
-    bfloat16 also 16-byte aligned, see :func:`_check_tma`) launch the
+    bfloat16, and float32 k and v at head dim 256, also 16-byte aligned, see
+    :func:`_check_tma`) launch the
     kernel of their dtype's route (:data:`ROUTES`); CPU tensors take
     :func:`ref.flash_attention`. Differentiable through
     :class:`FlashAttentionFn` on both devices.
@@ -231,7 +249,9 @@ def _launch(q, k, v, causal: bool, window: int, sk_true) -> torch.Tensor:
         raise ValueError("flash_attention: the head dim must be contiguous")
     route = ROUTES[q.dtype]
     if route == "flash_attention_sm90":
-        _check_tma(q, k, v)
+        _check_tma(q=q, k=k, v=v)
+    elif dh == 256:
+        _check_tma(k=k, v=v)
     # Keys past Sk do not exist either way; the kernels' tile plans take sk_true <= Sk.
     sk_true = sk if sk_true is None else min(sk, int(sk_true))
     o = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)

@@ -3,14 +3,18 @@
     PYTHONPATH=src python -m repro_torch.launch.bench_flash [--dtype float32|bfloat16]
         [--reps 10] [--src DIR]
 
-float32 (the default): at the internlm2-1.8b prefill shape
-(``chip_smoke.py``'s ``FA_PREFILL``: q (4, 2048, 16, 128), k/v (4, 2048, 8,
-128), causal) and at the shapes of the reference's kernel tests
-(``FA_TEST_SHAPES``), held against the plain version within rtol 1e-4,
-atol 2e-5; the bound is the larger of the bytes over the card's memory rate
-and three tf32 products for each operation the inputs need at the tf32
-tensor-core rate (one tf32 product misses the tolerance), with the float32
-CUDA-core figure beside it. bfloat16: at recurrentgemma-9b's prefill shape
+float32 (the default): at recurrentgemma-9b's prefill shape (``chip_smoke.py``'s
+``FA_RG_PREFILL``: q (1, 8192, 16, 256), k/v (1, 8192, 1, 256), causal,
+window 2048), at the internlm2-1.8b prefill shape (``FA_PREFILL``: q (4,
+2048, 16, 128), k/v (4, 2048, 8, 128), causal) and at the shapes of the
+reference's kernel tests, at their own head dims (``FA_TEST_SHAPES``) and at
+256 (``FA_TEST_SHAPES_256``), held against the plain version within rtol
+1e-4, atol 2e-5; the bound is the larger of the bytes over the card's
+memory rate and three tf32 products for each operation the inputs need at
+the tf32 tensor-core rate (one tf32 product misses the tolerance), with the
+float32 CUDA-core figure beside it; at head dim 256 each shape also prints
+the K/V tile bytes a launch loads at the float32 kernel's 64-row blocks.
+bfloat16: at recurrentgemma-9b's prefill shape
 (``FA_RG_PREFILL``: q (1, 8192, 16, 256), k/v (1, 8192, 1, 256), causal,
 window 2048), the internlm2-1.8b prefill and the head-dim-256 test shapes,
 held within rtol 1e-2, atol 1e-5 (``FA_BF16_TOL``); the bound takes the bf16
@@ -27,7 +31,7 @@ by ``git archive``; its ``kernels`` package is loaded under a name of its
 own and builds into that tree) and times the two in turns, ``DIR``'s, this
 tree's, this tree's, ``DIR``'s, at each shape, in one process on one card:
 
-    PYTHONPATH=src python -m repro_torch.launch.bench_flash --dtype bfloat16 \\
+    PYTHONPATH=src python -m repro_torch.launch.bench_flash --dtype float32 \\
         --src build/parent/src
 
 The card's SM clock, power draw and temperature (``nvidia-smi``) are
@@ -45,7 +49,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..kernels.flash_attention import kv_tile_bytes
+from ..kernels.flash_attention import F32_DH256_BLOCK_ROWS, kv_tile_bytes
 from .bench_l2 import _events_ms, _kernels
 from .profile_steps import card_state, kernel_rounds_ms
 
@@ -54,12 +58,13 @@ __all__ = ["SHAPES", "main"]
 # (B, Sq, Sk, H, KV, dh, causal, window): the prefill, then the test shapes.
 PREFILL = (4, 2048, 2048, 16, 8, 128, True, 0)
 RG_PREFILL = (1, 8192, 8192, 16, 1, 256, True, 2048)
+TEST_SHAPES = [(2, 256, 256, 8, 4, 64, True, 0), (1, 256, 256, 4, 1, 128, True, 64),
+               (2, 128, 128, 8, 8, 64, False, 0), (1, 200, 256, 8, 2, 64, True, 0),
+               (1, 384, 384, 16, 16, 80, False, 0), (1, 37, 37, 4, 2, 64, False, 0),
+               (2, 50, 100, 8, 4, 32, False, 0), (1, 100, 50, 4, 4, 64, False, 0)]
 SHAPES = {
-    "float32": [PREFILL,
-                (2, 256, 256, 8, 4, 64, True, 0), (1, 256, 256, 4, 1, 128, True, 64),
-                (2, 128, 128, 8, 8, 64, False, 0), (1, 200, 256, 8, 2, 64, True, 0),
-                (1, 384, 384, 16, 16, 80, False, 0), (1, 37, 37, 4, 2, 64, False, 0),
-                (2, 50, 100, 8, 4, 32, False, 0), (1, 100, 50, 4, 4, 64, False, 0)],
+    "float32": [RG_PREFILL, PREFILL, *TEST_SHAPES,
+                *(shape[:5] + (256,) + shape[6:] for shape in TEST_SHAPES)],
     "bfloat16": [RG_PREFILL, PREFILL,
                  (1, 256, 256, 16, 1, 256, True, 64), (1, 96, 96, 8, 8, 256, True, 0)],
 }
@@ -138,6 +143,10 @@ def main(argv=None) -> dict:
         else:
             t_ops = SPLIT * flops / TF32_TC_PEAK * 1e3
             row["fp32_core_bound_ms"] = flops / FP32_PEAK * 1e3
+            if dh == 256:
+                row["kv_tile_bytes"] = {str(F32_DH256_BLOCK_ROWS): kv_tile_bytes(
+                    b, sq, sk, h, kv, dh, causal=causal, window=window,
+                    block_rows=F32_DH256_BLOCK_ROWS, elem_bytes=4)}
         row.update(bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         for name in trees:
@@ -150,9 +159,11 @@ def main(argv=None) -> dict:
             f"{t} device {row[f'{t}_device_ms_{i}']:.6f} "
             f"({row[f'{t}_device_range_{i}'][0]:.6f}-{row[f'{t}_device_range_{i}'][1]:.6f}) "
             f"host-inclusive {row[f'{t}_ms_{i}']:.6f}" for i, t in enumerate(turns))
-        extra = (f"; K/V tile bytes a launch {row['kv_tile_bytes']['128']} at 128-row blocks, "
-                 f"{row['kv_tile_bytes']['64']} at 64-row" if "kv_tile_bytes" in row
+        extra = ("" if dtype == torch.bfloat16
                  else f" (float32 CUDA-core figure {row['fp32_core_bound_ms']:.6f})")
+        if "kv_tile_bytes" in row:
+            extra += "; K/V tile bytes a launch " + ", ".join(
+                f"{n} at {rows}-row blocks" for rows, n in row["kv_tile_bytes"].items())
         print(f"{shape}: in turns: {line}; bound {row['bound_ms']:.6f} ({row['bound_by']})"
               f"{extra}; this tree {row['this_share_of_bound']:.4f} of it"
               + (f", other {row['other_share_of_bound']:.4f}; device speed-up "

@@ -15,14 +15,16 @@ split; for ``quantized_l2``, every tile shape, D % 16 not zero, D in one
 chunk and in many, an unaligned query view, constant rows, rows that
 nearly coincide with a query and bit-identical repeats, and a CUDA
 index's device mirror; for ``flash_attention``, both
-routes (bfloat16 and split tf32, both on the tensor cores; float32 FMA at
-head dim 256), every head dim, recurrentgemma's windowed prefill shape,
+routes (bfloat16 and split tf32, both on the tensor cores, head dim 256
+included), every head dim, recurrentgemma's windowed prefill shape,
 groups that do not divide the 128-row tile, strided inputs, key lengths
 short of Sk and past it, rows that have no real key, at head dim 256 a last
 block half past the grid, a window's edge inside a key tile, one query
 position at G = 16 and K/V read from a packed tensor, the bfloat16 route's alignment
 rules, and for float32 rows that do not start on 16 bytes, a peaked
-softmax (q and k scaled x3) and the internlm2 prefill shape; for
+softmax (q and k scaled x3; at head dim 256 against the float64 result,
+and x2 against the plain version too), K and V that TMA cannot take at
+head dim 256 and the internlm2 prefill shape; for
 training, the attention's gradients through ``FlashAttentionFn`` on both
 routes against autograd of the plain version, the gradient to ``wq``
 through an attention block, microbatched train steps against the CPU and
@@ -456,6 +458,28 @@ def test_flash_attention_f32_peaked_softmax_matches_plain(cuda, b, sq, sk, h, kv
     np.testing.assert_allclose(got.double().cpu().numpy(), exact.cpu().numpy(), **tol)
 
 
+@pytest.mark.parametrize("scale", [2.0, 3.0])
+@pytest.mark.parametrize("b,sq,sk,h,kv,causal,window", [(1, 300, 300, 16, 1, True, 100),
+                                                        (2, 130, 200, 4, 2, False, 0)])
+def test_flash_attention_f32_dh256_peaked_softmax(cuda, b, sq, sk, h, kv, causal, window, scale):
+    # q and k scaled x2 and x3 at head dim 256. The kernel is held to the
+    # float64 result at both; at x3 the plain float32 version lands up to
+    # 1.2x the tolerance from that result itself (its dot products are
+    # twice as long as at dh 128, and its rounding grows with them), so it
+    # is the yardstick only at x2.
+    rng = np.random.default_rng(sq + sk + h + 256)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(cuda)
+               for shape in ((b, sq, h, 256), (b, sk, kv, 256), (b, sk, kv, 256)))
+    q, k = scale * q, scale * k
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    exact = _exact_attention(q, k, v, causal=causal, window=window)
+    tol = dict(rtol=1e-4, atol=2e-5)
+    np.testing.assert_allclose(got.double().cpu().numpy(), exact.cpu().numpy(), **tol)
+    if scale == 2.0:
+        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol)
+
+
 def test_flash_attention_bf16_dh256_peaked_softmax_matches_plain(cuda):
     # q and k scaled x3: tile maxima pass the kernel's running max by more
     # than its kStaleMax on some rows and not on others, so both branches of
@@ -538,6 +562,24 @@ def test_flash_attention_bf16_rejects_what_tma_cannot_take(cuda):
     with pytest.raises(ValueError, match="TMA"):
         fa.flash_attention(q.contiguous(), k_off, k)
     assert fa.flash_attention(q.contiguous(), k, k).shape == (1, 8, 4, 64)
+
+
+def test_flash_attention_f32_dh256_rejects_what_tma_cannot_take(cuda):
+    # float32 K and V at head dim 256 are read by TMA: a head stride of 257
+    # floats is refused, q may take any strides (16-byte vectors or floats).
+    q = torch.zeros((1, 8, 4, 256), device=cuda)
+    base = torch.zeros((1, 8, 2, 257), device=cuda)
+    k = torch.zeros((1, 8, 2, 256), device=cuda)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention(q, base[..., 1:], k)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention(q, k, base[..., :256])
+    rng = np.random.default_rng(257)
+    q_off = torch.from_numpy(rng.normal(0, 1, (1, 8, 4, 257)).astype(np.float32)).to(cuda)[..., 1:]
+    kv = torch.from_numpy(rng.normal(0, 1, (1, 8, 2, 256)).astype(np.float32)).to(cuda)
+    got = fa.flash_attention(q_off, kv, kv)
+    want = ref.flash_attention(q_off.contiguous(), kv, kv)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=2e-5)
 
 
 def test_flash_attention_rejects_what_it_cannot_take(cuda):

@@ -1,16 +1,18 @@
-"""The bfloat16 attention kernel's block plan, held against brute-force masks.
+"""The attention kernels' block plan, held against brute-force masks.
 
 Each block of ``csrc/flash_attention_sm90.cu`` owns 128 rows (query
 position, head in group) of a (batch, KV head) slab and sweeps one range of
 64-key tiles; at head dim 256 its two consumer warpgroups take turns on
-that range. It skips the tiles masked for every row of the block only when
+that range. The float32 kernel at head dim 256 (``csrc/flash_attention.cu``
+``flash_attn_tf32<256>``) shares the plan (``csrc/flash_plan.cuh``) with
+blocks of 64 rows. It skips the tiles masked for every row of the block only when
 every row has a real key (a key below ``sk_true`` that the causal and window
 masks let it see): only then is the sweep over such a tile wiped by
 ``corr = 0``. It applies the masks only on the tiles where some row needs
 one. ``flash_attention.key_tiles`` and ``tile_needs_mask`` mirror those two
 rules; here they are held, over many (Sq, Sk, G, causal, window, sk_true)
-and both block heights (128 rows, and the 64 of the head-dim-256 kernel
-before), against the masks written out key by key: every key a row needs is
+and both block heights (128 rows, and the 64 of the float32 kernel at
+head dim 256), against the masks written out key by key: every key a row needs is
 swept, a skipped tile holds no key any row of the block needs, and a tile
 goes unmasked exactly when every key of it is real for every row.
 """
@@ -105,3 +107,21 @@ def test_recurrentgemma_prefill_plan(block_rows, tiles, nbytes):
     assert (plan[:, 1] - plan[:, 0]).max() == 33
     assert fa.kv_tile_bytes(1, 8192, 8192, 16, 1, 256, causal=True, window=2048,
                             block_rows=block_rows) == nbytes
+
+
+def test_float32_dh256_plan_at_the_recurrentgemma_prefill():
+    """The float32 kernel at head dim 256 sweeps the plan at 64-row blocks
+    and reads its K/V tiles as float32: at recurrentgemma-9b's prefill,
+    2,048 blocks of 28.875 tiles on average (33 at most), 7.75 GB a launch,
+    twice the bfloat16 bytes at the same blocks."""
+    assert fa.F32_DH256_BLOCK_ROWS == 64
+    plan = fa.key_tiles(8192, 8192, 16, causal=True, window=2048,
+                        block_rows=fa.F32_DH256_BLOCK_ROWS)
+    assert plan.shape == (2048, 2)
+    assert (plan[:, 1] - plan[:, 0]).mean() == 28.875
+    assert (plan[:, 1] - plan[:, 0]).max() == 33
+    f32 = fa.kv_tile_bytes(1, 8192, 8192, 16, 1, 256, causal=True, window=2048,
+                           block_rows=fa.F32_DH256_BLOCK_ROWS, elem_bytes=4)
+    assert f32 == 7_751_073_792
+    assert f32 == 2 * fa.kv_tile_bytes(1, 8192, 8192, 16, 1, 256, causal=True, window=2048,
+                                       block_rows=64)

@@ -19,6 +19,18 @@ of the reference's Pallas kernel in interpret mode; at peaked softmaxes (q
 and k scaled x3), within the same tolerance of the float64 result. It also
 pins why each of q, k, p and v is split: leaving any one of them a single
 tf32 value misses that tolerance.
+
+Head dim 256 (``flash_attn_tf32<256>``) regroups the same arithmetic, and
+``_emulate_dh256`` replays that grouping: blocks of 64 rows, each sweeping
+the key tiles of the shared block plan (``flash_attention.key_tiles`` at
+64 rows) with the masks only on the tiles that ``tile_needs_mask`` names;
+S over eight K chunks of 32 columns, the hi hi products in one accumulator
+and the two small products in another, added once a tile; p @ v over eight
+V parts of 8 keys; out = acc * (1 / l). It is held at the head-dim-256
+shapes of ``test_torch_cuda.py`` to the plain version and the reference's
+oracle, at one small shape to the reference's Pallas kernel in interpret
+mode, and at peaked softmaxes to the float64 result; leaving any operand
+unsplit misses the tolerance there too.
 """
 
 import math
@@ -30,6 +42,7 @@ import torch
 
 from repro.kernels import ops as r_ops
 from repro.kernels import ref as r_ref
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref as t_ref
 
 F32_TOL = dict(rtol=1e-4, atol=2e-5)  # tests/test_torch_cuda.py, chip_smoke.py
@@ -52,6 +65,20 @@ SHAPES = [
 ]
 # q and k scaled x3: scores of about 3 |q||k| / sqrt(dh), a peaked softmax.
 PEAKED = [(2, 256, 256, 8, 4, 128, True, 0, None), (1, 192, 192, 8, 2, 80, False, 0, None)]
+# Head dim 256: the shapes of test_torch_cuda.py's kernel test, and peaked ones.
+SHAPES_256 = [
+    (1, 256, 256, 16, 1, 256, True, 64, None),
+    (2, 130, 200, 4, 2, 256, False, 0, 170),
+    (1, 96, 96, 8, 8, 256, True, 0, None),
+    (1, 130, 90, 6, 2, 256, False, 20, None),
+    (1, 100, 100, 16, 1, 256, True, 0, None),
+    (1, 36, 36, 16, 1, 256, True, 0, None),
+    (1, 300, 300, 16, 1, 256, True, 100, None),
+    (1, 1, 300, 16, 1, 256, True, 0, None),
+    (1, 130, 90, 6, 2, 256, False, 20, 1000),
+]
+PEAKED_256 = [(1, 300, 300, 16, 1, 256, True, 100, None), (2, 130, 200, 4, 2, 256, False, 0, None)]
+KC_256, VK_256 = 32, 8  # columns of a K chunk, keys of a V part at head dim 256
 
 
 def tf32(x):
@@ -154,6 +181,76 @@ def _emulate(q, k, v, *, causal, window, sk_true=None, split=SPLIT):
     return out.reshape(b, kv, sq, g, dh).permute(0, 2, 1, 3, 4).reshape(b, sq, h, dh)
 
 
+def _emulate_dh256(q, k, v, *, causal, window, sk_true=None, split=SPLIT):
+    """``flash_attn_tf32<256>``'s arithmetic on float32 q (B, Sq, H, 256),
+    k, v (B, Sk, KV, 256): each block of 64 rows sweeps its own key tiles
+    (the shared block plan) and masks only the tiles the plan's rule names;
+    keys past Sk are zero K and V rows with score -inf."""
+    b, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    rows_n = sq * g
+    sk_eff = sk if sk_true is None else min(sk, sk_true)
+    rows = q.reshape(b, sq, kv, g, dh).permute(0, 2, 1, 3, 4).reshape(b, kv, rows_n, dh)
+    qh, ql = _split(rows.float(), "q" in split)
+    scale_log2 = (torch.tensor(1.4426950408889634, dtype=torch.float32)
+                  * torch.tensor(1.0 / dh ** 0.5, dtype=torch.float32))
+    n_tiles = (sk + BK - 1) // BK
+    pad = n_tiles * BK - sk
+    kp_all = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad)).permute(0, 2, 1, 3)
+    vp_all = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad)).permute(0, 2, 1, 3)
+    plan = fa.key_tiles(sq, sk, g, causal=causal, window=window, sk_true=sk_true,
+                        block_rows=fa.F32_DH256_BLOCK_ROWS)
+    perm = torch.tensor(ORDER)
+    out = torch.zeros((b, kv, rows_n, dh))
+    for bi in range(b):
+        for kvi in range(kv):
+            for blk, (t_lo, t_hi) in enumerate(plan):
+                r0 = blk * fa.F32_DH256_BLOCK_ROWS
+                r1 = min(r0 + fa.F32_DH256_BLOCK_ROWS, rows_n)
+                qhb, qlb = qh[bi, kvi, r0:r1], ql[bi, kvi, r0:r1]
+                qpos = torch.arange(r0, r1)[:, None] // g
+                q_lo, q_hi = r0 // g, (r1 - 1) // g
+                m = torch.full((r1 - r0, 1), -1e30)
+                l = torch.zeros_like(m)
+                acc = torch.zeros((r1 - r0, dh))
+                for t in range(int(t_lo), int(t_hi)):
+                    k0 = t * BK
+                    kh, kl = _split(kp_all[bi, kvi, k0:k0 + BK], "k" in split)
+                    sc = torch.zeros((r1 - r0, BK))
+                    small = torch.zeros((r1 - r0, BK))
+                    for c in range(0, dh, KC_256):
+                        cs = slice(c, c + KC_256)
+                        sc = sc + qhb[:, cs] @ kh[:, cs].T
+                        small = small + (qhb[:, cs] @ kl[:, cs].T + qlb[:, cs] @ kh[:, cs].T)
+                    x = (sc + small) * scale_log2
+                    if fa.tile_needs_mask(q_lo, q_hi, t, sk, causal=causal, window=window,
+                                          sk_true=sk_true):
+                        kpos = torch.arange(k0, k0 + BK)[None, :]
+                        ok = kpos < sk_eff
+                        if causal:
+                            ok = ok & (qpos >= kpos)
+                        if window > 0:
+                            ok = ok & (qpos - kpos < window)
+                        x = torch.where(ok, x, torch.tensor(-1e30))
+                        x = torch.where(kpos < sk, x, torch.tensor(-math.inf))
+                    m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+                    corr = torch.exp2(m - m_new)
+                    l = l * corr
+                    acc = acc * corr
+                    for part in range(BK // VK_256):
+                        # Logical key j of the part is key ORDER[j], in P and in V.
+                        idx = part * VK_256 + perm
+                        p = torch.exp2(x[:, idx] - m_new)
+                        l = l + p.sum(dim=-1, keepdim=True)
+                        ph, pl = _split(p, "p" in split)
+                        vh, vl = _split(vp_all[bi, kvi, k0:k0 + BK][idx], "v" in split)
+                        acc = acc + (ph @ vh + ph @ vl + pl @ vh)
+                    m = m_new
+                out[bi, kvi, r0:r1] = acc * (1.0 / l.clamp_min(1e-30))
+    return out.reshape(b, kv, sq, g, dh).permute(0, 2, 1, 3, 4).reshape(b, sq, h, dh)
+
+
 def _inputs(b, sq, sk, h, kv, dh, scale=1.0):
     rng = np.random.default_rng(sq + sk + h + dh)
     q, k, v = (rng.normal(0, 1, shape).astype(np.float32)
@@ -178,12 +275,12 @@ def _exact(q, k, v, *, causal, window):
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).numpy()
 
 
-def _check(q, k, v, causal, window, sk_true):
-    got = _emulate(q, k, v, causal=causal, window=window, sk_true=sk_true).numpy()
+def _check(q, k, v, causal, window, sk_true, emulate=_emulate):
+    got = emulate(q, k, v, causal=causal, window=window, sk_true=sk_true).numpy()
     assert np.isfinite(got).all()
     plain = t_ref.flash_attention(q, k, v, causal=causal, window=window, sk_true=sk_true)
     np.testing.assert_allclose(got, plain.numpy(), **F32_TOL)
-    if sk_true is None:  # the reference's oracle has no key length
+    if sk_true is None or sk_true >= k.shape[1]:  # the reference's oracle has no key length
         want = r_ref.flash_attention_ref(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
                                          causal=causal, window=window)
         np.testing.assert_allclose(got, np.asarray(want), **F32_TOL)
@@ -249,3 +346,42 @@ def test_each_operand_unsplit_misses_the_tolerance(operand):
                    split=SPLIT.replace(operand, "")).numpy()
     bound = F32_TOL["atol"] + F32_TOL["rtol"] * np.abs(plain)
     assert (np.abs(got - plain) > bound).mean() > 0.01
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,window,sk_true", SHAPES_256)
+def test_dh256_split_products_meet_the_f32_tolerance(b, sq, sk, h, kv, dh, causal, window,
+                                                     sk_true):
+    _check(*_inputs(b, sq, sk, h, kv, dh), causal, window, sk_true, emulate=_emulate_dh256)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,window,sk_true", PEAKED_256)
+def test_dh256_split_products_meet_the_f32_tolerance_on_a_peaked_softmax(b, sq, sk, h, kv, dh,
+                                                                         causal, window,
+                                                                         sk_true):
+    # As at the smaller head dims, the replay is held to the float64 result:
+    # at dh 256 the plain version's own float32 sums are twice as long.
+    q, k, v = _inputs(b, sq, sk, h, kv, dh, scale=3.0)
+    exact = _exact(q, k, v, causal=causal, window=window)
+    got = _emulate_dh256(q, k, v, causal=causal, window=window).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, exact, **F32_TOL)
+
+
+def test_dh256_split_products_match_the_pallas_kernel():
+    b, sq, sk, h, kv, dh, causal, window = 1, 64, 80, 4, 2, 256, True, 0
+    q, k, v = _inputs(b, sq, sk, h, kv, dh)
+    got = _emulate_dh256(q, k, v, causal=causal, window=window).numpy()
+    want = r_ops.flash_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)), causal=causal,
+                                 window=window, block_q=32, block_k=32, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("operand", list(SPLIT))
+def test_dh256_each_operand_unsplit_misses_the_tolerance(operand):
+    b, sq, sk, h, kv, dh, causal, window, sk_true = PEAKED_256[0]
+    q, k, v = _inputs(b, sq, sk, h, kv, dh, scale=3.0)
+    exact = _exact(q, k, v, causal=causal, window=window)
+    got = _emulate_dh256(q, k, v, causal=causal, window=window,
+                         split=SPLIT.replace(operand, "")).numpy()
+    bound = F32_TOL["atol"] + F32_TOL["rtol"] * np.abs(exact)
+    assert (np.abs(got - exact) > bound).mean() > 0.01
