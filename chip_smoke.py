@@ -107,8 +107,13 @@ in a row is taken with CUDA events behind a spin kernel instead
    byte-identical, while a second such upload is saved and deleted and the
    maintenance daemon (as ``python -m repro_torch.server`` runs it)
    vacuums it, the mirrors held equal to their host arrays after each;
-   then ``python -m repro_torch.server`` on the same store in a
-   subprocess: its serving line, ``/v1/healthz``, and exit 0 on SIGINT.
+   the port's ``nstat --url`` against the server, in this process (the
+   ``neurstore_server_requests_total`` series it renders equal to the
+   requests made); then ``python -m repro_torch.server`` on the same store
+   in a subprocess: its serving line, ``/v1/healthz``, and exit 0 on
+   SIGINT; then the port's ``fsck --accounting`` on the store, on the card
+   (clean, no drift; the check's and the cross-check's seconds and the
+   page bytes checked printed).
 
 10. The model zoo (run right after phase 6), each model built on the card
    by ``init_params`` from ``SEED`` and freed before the next, driven
@@ -151,6 +156,15 @@ in a row is taken with CUDA events behind a spin kernel instead
    and the reference test's 50-step 4-bit error-feedback loop on one real
    leaf within its atol (``EF_ATOL``); the sync's ms and bytes printed.
 
+13. The operator tools and the examples (run right after phase 9): a
+   few-MB store of four fine-tunes saved on the card, damaged (one page
+   corrupt, a torn journal tail, a corrupt ``meta.json`` beside a good
+   ``.prev``) and repaired by the port's ``fsck --repair --drop-corrupt``
+   on the card: clean after, the models it keeps bit-identical to their
+   loads before the damage; then ``quickstart`` (one ``dequant_matmul``
+   launch), ``finetune_dedup`` (saves on ``quantized_l2``) and
+   ``serve_compressed`` through their ``main()``, their numbers checked.
+
 12. The pod-mesh layer (run after phase 11), over a world-size-1 NCCL
    group on a (1, 1) ("data", "model") and a (1, 1, 1) ("pod", "data",
    "model") ``DeviceMesh``, under the ``"tp"`` and ``"dp"`` rule tables:
@@ -172,8 +186,9 @@ The run prints phase 10's seconds beside its budget (``ZOO_BUDGET_S``) and
 its own beside ``SCRIPT_BUDGET_S``.
 Each path's launch counts are set to 0 just before it and read just after;
 the run fails unless every kernel was launched on some path. The inputs
-each path gives ``flash_attention`` and ``quantized_l2`` are recorded
-(their shapes, masks and dtype), and after the path each kernel is held
+each path gives ``flash_attention``, ``quantized_l2`` and the two
+``dequant_matmul`` routes are recorded (their shapes, masks and dtype),
+and after the path each kernel is held
 against its plain version, on random inputs, at every such input that no
 earlier phase held. The last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -185,6 +200,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -468,13 +484,16 @@ def _fa_key(q, k, causal, window, sk_true) -> tuple:
 @contextlib.contextmanager
 def _recording():
     """The distinct inputs the kernels get inside the block, through the
-    seams the model stack and the HNSW index reach them by
-    (``ops.flash_attention``, ``ops.quantized_l2``): ``{"flash_attention":
-    {_fa_key}, "quantized_l2": {(B, N, D)}}``. The calls pass through."""
+    seams the model stack, the HNSW index and the compressed matmuls reach
+    them by (``ops.flash_attention``, ``ops.quantized_l2``,
+    ``ops.dequant_matmul``, ``ops.dequant_matmul_int4``): ``{"flash_attention":
+    {_fa_key}, "quantized_l2": {(B, N, D)}, "dequant_matmul": {(M, K, N,
+    packed)}}``. The calls pass through."""
     from repro_torch.kernels import ops
 
-    seen = {"flash_attention": set(), "quantized_l2": set()}
+    seen = {"flash_attention": set(), "quantized_l2": set(), "dequant_matmul": set()}
     fa, ql2 = ops.flash_attention, ops.quantized_l2
+    dq8, dq4 = ops.dequant_matmul, ops.dequant_matmul_int4
 
     def flash_attention(q, k, v, *, causal=True, window=0, sk_true=None, **kw):
         seen["flash_attention"].add(_fa_key(q, k, causal, window, sk_true))
@@ -484,16 +503,53 @@ def _recording():
         seen["quantized_l2"].add((queries.shape[0], *codes.shape))
         return ql2(queries, codes, *rest)
 
+    def dequant_matmul(x, base, *rest):
+        seen["dequant_matmul"].add((x.shape[0], *base.shape, False))
+        return dq8(x, base, *rest)
+
+    def dequant_matmul_int4(x, base, *rest):
+        seen["dequant_matmul"].add((x.shape[0], *base.shape, True))
+        return dq4(x, base, *rest)
+
     ops.flash_attention, ops.quantized_l2 = flash_attention, quantized_l2
+    ops.dequant_matmul, ops.dequant_matmul_int4 = dequant_matmul, dequant_matmul_int4
     try:
         yield seen
     finally:
         ops.flash_attention, ops.quantized_l2 = fa, ql2
+        ops.dequant_matmul, ops.dequant_matmul_int4 = dq8, dq4
+
+
+def _hold_matmul(m: int, k: int, n: int, packed: bool, rng) -> tuple[float, float]:
+    """``dequant_matmul`` (int8 delta) or ``dequant_matmul_int4`` (packed
+    delta) against its plain version at (M, K) x (K, N), on random codes
+    and phase 3's quantization parameters: (max abs err, allclose ratio at
+    rtol 1e-4, atol 1e-5 x the output's largest magnitude)."""
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).to(dev)
+    base = torch.from_numpy(rng.integers(-128, 128, (k, n), dtype=np.int8)).to(dev)
+    if packed:
+        delta = ops.pack_int4(torch.from_numpy(rng.integers(0, 16, (k, n), dtype=np.uint8)).to(dev))
+        args = (x, base, 0.013, -11.0, delta, 5e-4, 8.0)
+        got, want = ops.dequant_matmul_int4(*args), ref.dequant_matmul_int4(*args)
+    else:
+        delta = torch.from_numpy(rng.integers(-128, 128, (k, n), dtype=np.int8)).to(dev)
+        args = (x, base, 0.013, -11.0, delta, 3.1e-4, -64.0)
+        got, want = ops.dequant_matmul(*args), ref.dequant_matmul(*args)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max()) + 1e-6
+    abs_err, ratio = _close(got, want, 1e-4, 1e-5 * scale)
+    if not torch.isfinite(got).all():
+        ratio = float("inf")
+    return abs_err, ratio
 
 
 def _hold_recorded(label: str, seen: dict, held: dict, entries: list) -> None:
-    """Hold ``flash_attention`` and ``quantized_l2`` against their plain
-    versions at every input shape a main path gave them (``_recording``)
+    """Hold ``flash_attention``, ``quantized_l2`` and the two
+    ``dequant_matmul`` routes against their plain versions at every input
+    shape a main path gave them (``_recording``)
     that no phase has held yet, on random inputs from ``SEED``. Run after
     the path's counts were read: these launches count on no path."""
     from repro_torch.kernels import flash_attention as fa
@@ -536,6 +592,17 @@ def _hold_recorded(label: str, seen: dict, held: dict, entries: list) -> None:
         worst["quantized_l2"] = max(worst.get("quantized_l2", 0.0), abs_err)
         held["quantized_l2"].add((b, n, d))
         del q, codes
+    rng = np.random.default_rng(SEED + 10)
+    for m, k, n, packed in sorted(seen["dequant_matmul"] - held["dequant_matmul"]):
+        name = "dequant_matmul_int4" if packed else "dequant_matmul"
+        abs_err, ratio = _hold_matmul(m, k, n, packed, rng)
+        line = (f"{label}: {name} held at the path's M={m} K={k} N={n}: max abs err "
+                f"{abs_err:.3e}, allclose ratio {ratio:.3f} (rtol 1e-4, atol 1e-5 x max |y|)")
+        if ratio > 1.0:
+            fail(line)
+        log(line)
+        worst[name] = max(worst.get(name, 0.0), abs_err)
+        held["dequant_matmul"].add((m, k, n, packed))
     for e in entries:
         if e["name"] in worst:
             e["max_abs_err"] = max(e["max_abs_err"], worst[e["name"]])
@@ -761,6 +828,7 @@ def phase_kernels(dev_info: dict, held: dict) -> list[dict]:
                 scal = (0.013, -11.0, 3.1e-4, -64.0)
                 fn, plain = ops.dequant_matmul, ref.dequant_matmul
             args = (x, base, scal[0], scal[1], delta, scal[2], scal[3])
+            held["dequant_matmul"].add((BATCH, k, n, packed))
             got = fn(*args)
             want = plain(*args)
             torch.cuda.synchronize()
@@ -1128,10 +1196,18 @@ def phase_flash_attention(dev_info: dict, ptxas: dict, held: dict) -> list[dict]
     return [entry, entry256]
 
 
-def _finetune(tensors: dict, rng) -> dict:
-    """The base plus seeded noise of 1e-3 x each tensor's std."""
-    return {k: (v + rng.normal(0.0, 1e-3 * float(v.std()), v.shape)).astype(np.float32)
-            for k, v in tensors.items()}
+def _finetune(tensors: dict, seed: int) -> dict:
+    """The base plus seeded noise of 1e-3 x each tensor's std, as host
+    float32 arrays. The noise is drawn on the card: drawn by numpy on the
+    host, phase 4's 505 M weights took about 13 s a fine-tune."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for k, v in tensors.items():
+        t = torch.from_numpy(v).to("cuda")
+        noise = torch.randn(t.shape, generator=gen, device="cuda")
+        out[k] = noise.mul_(1e-3 * t.std(correction=0)).add_(t).cpu().numpy()
+        del t, noise
+    return out
 
 
 def _decode_checked(eng, spec, prompt, bits: int, bw: float) -> dict:
@@ -1281,7 +1357,7 @@ def phase_main_path(dev_info: dict, keep: dict) -> dict[str, int]:
         f"{N_LAYERS} layers (the save path is host numpy)")
     t0 = time.perf_counter()
     base = init_decoder_tensors(spec, seed=SEED)
-    ft = _finetune(base, np.random.default_rng(SEED + 1))
+    ft = _finetune(base, SEED + 1)
     n_weights = sum(v.size for k, v in base.items() if k != "model.embed_tokens.weight"
                     and v.ndim == 2)
     log(f"weights: {sum(v.size for v in base.values())} elements, {n_weights} in matmuls; "
@@ -1438,6 +1514,54 @@ def _joined(what: str, box: dict) -> tuple[dict, float]:
     return box.pop("got"), box["secs"]
 
 
+def _nstat_requests(url: str) -> tuple[dict, float]:
+    """``python -m repro_torch.tools.nstat --url URL``, run in this process:
+    the ``neurstore_server_requests_total`` series it renders, by (route,
+    method, status), and its seconds."""
+    from repro_torch.tools import nstat
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = nstat.main(["--url", url])
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"nstat --url {url} exited {rc}")
+    rendered = {}
+    for line in out.getvalue().splitlines():
+        m = re.fullmatch(r"  neurstore_server_requests_total"
+                         r"\{method=(\w+),route=([\w.]+),status=(\w+)\} = (\d+)", line)
+        if m:
+            rendered[m.group(2), m.group(1), m.group(3)] = float(m.group(4))
+    return rendered, secs
+
+
+def _fsck_accounting(root: str) -> None:
+    """``python -m repro_torch.tools.fsck ROOT --accounting`` on the card:
+    its check (no engine: page framing and records, index frames parsed
+    on the CPU, the reference table) and then its accounting cross-check
+    (an engine on the card, its ledger against a page rescan), timed
+    apart. The store must be clean (no errors; warnings, states the engine
+    handles itself, are printed), with no drift."""
+    from repro_torch.tools import fsck
+
+    pages = os.path.join(root, "pages")
+    page_bytes = sum(os.path.getsize(os.path.join(pages, f)) for f in os.listdir(pages))
+    rep = {"root": root, "errors": [], "warnings": [], "actions": []}
+    t0 = time.perf_counter()
+    fsck._check(root, rep)
+    check_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fsck._check_accounting(root, rep, device="cuda")
+    acct_s = time.perf_counter() - t0
+    line = (f"fsck --accounting on phase 4's store: check {check_s:.3f} s over {page_bytes} "
+            f"page bytes ({page_bytes / check_s / 1e6:.3f} MB/s), accounting cross-check "
+            f"{acct_s:.3f} s; errors {rep['errors']}, warnings {rep['warnings']}")
+    if rep["errors"]:
+        fail(line)
+    log(line)
+
+
 def phase_store_service(keep: dict) -> dict[str, int]:
     """Phase 9: the store's front door, ``ModelStoreServer`` driven through
     ``StoreClient``, mounted on phase 4's engine and store (upload → dedup
@@ -1460,7 +1584,7 @@ def phase_store_service(keep: dict) -> dict[str, int]:
         f"{STORE_READERS} concurrent readers (cut from 4 to bound the phase's time); each "
         f"download runs beside the engine's own load of the same model, which it is held to")
     t0 = time.perf_counter()
-    ft2 = _finetune(keep.pop("base"), np.random.default_rng(SEED + 3))
+    ft2 = _finetune(keep.pop("base"), SEED + 3)
     rng = np.random.default_rng(SEED + 4)
     d, f = spec.d_model, spec.d_ff
     kv = spec.n_kv_heads * (d // spec.n_heads)
@@ -1647,6 +1771,17 @@ def phase_store_service(keep: dict) -> dict[str, int]:
             f"({STORE_READERS * n / wall / 1e6:.3f} MB/s together), each "
             + ", ".join(f"{secs:.3f}" for _, secs in results) + " s; all byte-identical")
         del results, boxes, keep8
+
+        # (7) The port's nstat scraping the server: the request counters it
+        # renders equal the requests made (step (4)'s scrape included).
+        requests["metrics", "GET", "2xx"] += 1
+        rendered, secs = _nstat_requests(f"http://{server.host}:{server.port}")
+        want = {k: float(v) for k, v in requests.items()}
+        if rendered != want:
+            fail(f"nstat --url: neurstore_server_requests_total {rendered}, requests made {want}")
+        log(f"nstat --url: {secs:.3f} s; its neurstore_server_requests_total lines equal the "
+            f"{sum(requests.values())} requests made, in {len(rendered)} (route, method, "
+            f"status) series")
     finally:
         client.close()
         server.stop()
@@ -1656,7 +1791,110 @@ def phase_store_service(keep: dict) -> dict[str, int]:
     del eng
     torch.cuda.empty_cache()
     _serve_cli(tmp.name, ["ft2"])
+    _fsck_accounting(tmp.name)
     tmp.cleanup()
+    return counts
+
+
+def _damage_and_repair() -> None:
+    """Phase 13 (a): a few-MB port store of four fine-tunes of one base,
+    saved on the card, then damaged three ways: one model's page corrupt,
+    a torn journal tail and a corrupt ``meta.json`` beside a good
+    ``.prev`` (the snapshot before the last save). The port's ``fsck
+    --repair --drop-corrupt`` on the card must leave it clean, the models
+    it could keep loading bit-identically to before the damage."""
+    from repro_torch.core import StorageEngine
+    from repro_torch.core.catalog import Catalog
+    from repro_torch.tools import fsck
+
+    rng = np.random.default_rng(SEED + 20)
+    base = {"attn": rng.normal(0, 0.02, (1024, 1024)).astype(np.float32),
+            "mlp": rng.normal(0, 0.02, (1024, 512)).astype(np.float32),
+            "norm": np.ones(1024, np.float32)}
+    names = [f"ft{i}" for i in range(4)]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_fsck_") as root:
+        eng = StorageEngine(root, device="cuda")
+        for i, name in enumerate(names):
+            eng.save_model(name, {}, _finetune(base, SEED + 21 + i))
+        before = {name: eng.load_model(name).materialize() for name in names}
+        eng.close()
+        pages = os.path.join(root, "pages")
+        size = sum(os.path.getsize(os.path.join(pages, f)) for f in os.listdir(pages))
+        page = os.path.join(pages, Catalog(root).get("ft1").page)
+        for path, at in ((page, os.path.getsize(page) - 4), (os.path.join(root, "meta.json"), 12)):
+            with open(path, "r+b") as f:
+                f.seek(at)
+                byte = f.read(1)[0]
+                f.seek(at)
+                f.write(bytes([byte ^ 1]))
+        with open(os.path.join(root, "journal.jsonl"), "ab") as f:
+            f.write(b'{"op": "intent", "tx": 99, "na')
+        damaged = fsck.fsck(root)
+        t0 = time.perf_counter()
+        rep = fsck.fsck(root, repair=True, drop_corrupt=True)
+        repair_s = time.perf_counter() - t0
+        eng = StorageEngine(root, device="cuda")
+        try:
+            kept = eng.list_models()
+            same = all(np.array_equal(got, before[name][k])
+                       for name in kept
+                       for k, got in eng.load_model(name).materialize().items())
+        finally:
+            eng.close()
+        line = (f"fsck --repair --drop-corrupt of a damaged {size}-byte store on the card: "
+                f"{repair_s:.3f} s; before: {len(damaged['errors'])} errors, "
+                f"{len(damaged['warnings'])} warnings; actions {rep['actions']}; after: clean "
+                f"{rep['clean']}, warnings {rep['warnings']}; models kept {kept} (the promoted "
+                f".prev predates ft3; ft1's page was corrupt), bit-identical to before {same}")
+        if damaged["clean"] or not rep["clean"] or kept != ["ft0", "ft2"] or not same:
+            fail(line)
+        log(line)
+
+
+def phase_tools_examples() -> dict[str, int]:
+    """Phase 13: the operator tools and the examples on the card. (a) A
+    damaged store repaired by the port's fsck (``_damage_and_repair``);
+    (b) ``quickstart``, ``finetune_dedup`` and ``serve_compressed`` run
+    through their ``main()`` in this process, on the card: one
+    ``dequant_matmul`` launch on the int8 route, and saves whose distance
+    blocks run on ``quantized_l2``; their printed numbers are checked as
+    the examples check them, and the kernel inputs they give are held
+    against the plain versions after the path (``_recording``)."""
+    from repro_torch.examples import finetune_dedup, quickstart, serve_compressed
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    _damage_and_repair()
+    secs = {"fsck repair": time.perf_counter() - t_phase}
+    results = {}
+    for name, example in (("quickstart", quickstart), ("finetune_dedup", finetune_dedup),
+                          ("serve_compressed", serve_compressed)):
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        results[name] = example.main([])
+        secs[name] = time.perf_counter() - t0
+        launched = {k: n - before[k] for k, n in ops.launch_counts().items() if n > before[k]}
+        log(f"example {name}: {secs[name]:.3f} s, launches {launched}")
+        results[name]["launches"] = launched
+    qs, fd, sc = (results[n] for n in ("quickstart", "finetune_dedup", "serve_compressed"))
+    line = (f"examples: quickstart rel err {qs['rel_err']:.3e} (dequant_matmul launches "
+            f"{qs['launches'].get('dequant_matmul', 0)}), finetune new bases "
+            f"{qs['finetune_new_bases']}; finetune_dedup max err {fd['max_err']:.3e}, ratios "
+            f"{ {k: round(v, 6) for k, v in fd['ratios'].items()} } (quantized_l2 launches "
+            f"{fd['launches'].get('quantized_l2', 0)}); serve_compressed agreement "
+            f"{sc['agreement']:.4f}, compression ratio "
+            f"{sc['storage_report']['compression_ratio']:.6f}")
+    if (qs["launches"].get("dequant_matmul", 0) != 1 or not qs["rel_err"] < 1e-3
+            or qs["finetune_new_bases"] != 0 or fd["launches"].get("quantized_l2", 0) <= 0
+            or not fd["max_err"] <= 2 ** -23 or not fd["ratios"]["neurstore"] > 1.0
+            or not sc["agreement"] > 0.5):
+        fail(line)
+    log(line)
+    counts = ops.launch_counts()
+    torch.cuda.empty_cache()
+    log(f"tools and examples phase (13): {time.perf_counter() - t_phase:.3f} s "
+        f"({', '.join(f'{k} {v:.3f} s' for k, v in secs.items())})")
     return counts
 
 
@@ -3076,7 +3314,7 @@ def main() -> int:
     t0 = time.perf_counter()
     ptxas = phase_build()
     # The inputs each kernel has been held at against its plain version.
-    held = {"flash_attention": set(), "quantized_l2": set()}
+    held = {"flash_attention": set(), "quantized_l2": set(), "dequant_matmul": set()}
     entries = phase_kernels(dev_info, held)
     log(f"kernels phase: {time.perf_counter() - t0:.3f} s")
     counts: dict[str, int] = {}
@@ -3105,6 +3343,7 @@ def main() -> int:
     store: dict = {}
     main_path("main path", lambda: phase_main_path(dev_info, store))
     main_path("store service", lambda: phase_store_service(store))
+    main_path("tools and examples", phase_tools_examples)
     main_path("model stack", phase_model_stack)
     zoo_s = main_path("model zoo", phase_zoo)
     log(f"model zoo phase (10): {zoo_s:.3f} s of its {ZOO_BUDGET_S:.0f} s budget")

@@ -240,8 +240,9 @@ def verify_page(buf: bytes) -> TensorPage:
     """
     page = read_page_header(buf)
     if page.crcs is not None:
+        view = memoryview(buf)  # each record's CRC without copying it out
         for i, ((o, l), c) in enumerate(zip(page.offsets, page.crcs)):
-            if c and crc32(bytes(buf[o:o + l])) != c:
+            if c and crc32(view[o:o + l]) != c:
                 raise CorruptPageError(f"record {i} checksum mismatch")
     return page
 

@@ -23,9 +23,11 @@ The contract under test:
   the slow-op threshold is configurable via env var / server knob.
 """
 
+import functools
 import importlib.util
 import json
 import os
+import types
 
 import numpy as np
 import pytest
@@ -39,6 +41,7 @@ from repro_torch.obs.trace import (
 )
 from repro_torch.server import ModelStoreServer, StoreClient
 from repro_torch.store import SaveRequest
+from repro_torch.tools import fsck as port_fsck
 
 # ``repro_torch.obs`` re-exports the ``trace`` *function* under the same name
 # as the module, so resolve the module itself explicitly.
@@ -49,9 +52,21 @@ _FSCK_PATH = os.path.join(
     "tools", "fsck.py",
 )
 _spec = importlib.util.spec_from_file_location("neurstore_fsck_a", _FSCK_PATH)
-fsck_mod = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(fsck_mod)
-fsck = fsck_mod.fsck
+_ref_fsck = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_ref_fsck)
+# The port's fsck with its engines on the CPU (they default to the card).
+_port_fsck = types.SimpleNamespace(
+    fsck=functools.partial(port_fsck.fsck, device="cpu"),
+    main=lambda argv: port_fsck.main([*argv, "--device", "cpu"]),
+    _check_accounting=functools.partial(port_fsck._check_accounting, device="cpu"),
+)
+
+
+@pytest.fixture(params=["reference", "port"])
+def fsck_mod(request):
+    """Each fsck: the reference's ``tools/fsck.py`` and the port's
+    ``repro_torch.tools.fsck``."""
+    return _ref_fsck if request.param == "reference" else _port_fsck
 
 EXPLAIN_KEYS = {
     "tensor", "dim", "vertex_id", "outcome", "probe_distance",
@@ -332,12 +347,12 @@ def test_explain_sidecar_lifecycle_delete_vacuum_orphans(tmp_path):
 
 
 # -------------------------------------------------------------------- fsck
-def test_fsck_accounting_clean_and_forced_drift(tmp_path):
+def test_fsck_accounting_clean_and_forced_drift(tmp_path, fsck_mod):
     root = str(tmp_path)
     eng = StorageEngine(root, device="cpu")
     eng.save_model("m", {}, _mk(14))
     eng.close()
-    rep = fsck(root, accounting=True)
+    rep = fsck_mod.fsck(root, accounting=True)
     assert rep["clean"], rep["errors"]
 
     # Forced drift: corrupt the live ledger, then the cross-check must

@@ -4,6 +4,11 @@ A store is shared between the packages: one saved by ``repro`` opens in
 ``repro_torch`` with identical tensors, and the reverse; the same saves in
 both packages give the same EXPLAIN rows and the same page and index
 bytes. The port's engine runs on the card unless told ``device="cpu"``.
+
+The second half is the reference suite ``tests/test_engine.py`` held
+against the port (Alg. 1 / Alg. 2, index cache, pages): every case, its
+imports on ``repro_torch``, every engine and index made with
+``device="cpu"``.
 """
 
 import os
@@ -15,7 +20,11 @@ import torch
 
 import repro.core as R
 import repro_torch.core as T
+from repro_torch.core import DEFAULT_TOLERANCE, StorageEngine
+from repro_torch.core.hnsw import HNSWIndex
 from repro_torch.core.loader import reconstruct_torch
+
+RNG = np.random.default_rng(7)
 
 
 def _base(seed: int = 0) -> dict:
@@ -151,3 +160,173 @@ def test_reconstruct_torch_matches_reference():
     got = reconstruct_torch(torch.from_numpy(base), float(args[0]), float(args[1]),
                             torch.from_numpy(q), float(args[2]), float(args[3]))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ------------------------------------- the reference's engine suite
+
+
+def _mlp_tensors(scale=0.02, d=48):
+    return {
+        "layer0/w": RNG.normal(0, scale, (d, d)).astype(np.float32),
+        "layer0/b": RNG.normal(0, scale, (d,)).astype(np.float32),
+        "layer1/w": RNG.normal(0, scale, (d, 2 * d)).astype(np.float32),
+    }
+
+
+def test_save_load_roundtrip_bounded(tmp_path):
+    eng = StorageEngine(str(tmp_path), device="cpu")
+    tensors = _mlp_tensors()
+    eng.save_model("m0", {"kind": "mlp"}, tensors)
+    loaded = eng.load_model("m0").materialize()
+    for k, v in tensors.items():
+        assert loaded[k].shape == v.shape
+        assert np.abs(loaded[k] - v).max() <= DEFAULT_TOLERANCE * 1.001 + 1e-9
+
+
+def test_finetuned_variants_dedup(tmp_path):
+    """Fine-tunes within tau of the base must NOT create new vertices and
+    must compress far better than the base (paper's central mechanism)."""
+    eng = StorageEngine(str(tmp_path), device="cpu")
+    base = _mlp_tensors()
+    r0 = eng.save_model("base", {}, base)
+    assert r0.n_new_bases == len(base)
+    ratios = []
+    for i in range(4):
+        ft = {k: v + RNG.normal(0, 5e-4, v.shape).astype(np.float32)
+              for k, v in base.items()}
+        r = eng.save_model(f"ft{i}", {}, ft)
+        assert r.n_new_bases == 0, "fine-tune should match existing bases"
+        ratios.append(r.original_bytes / r.page_bytes)
+    assert min(ratios) > 1.5  # deltas need far fewer bits than f32
+
+
+def test_dissimilar_model_new_bases(tmp_path):
+    eng = StorageEngine(str(tmp_path), device="cpu")
+    eng.save_model("a", {}, _mlp_tensors())
+    other = {k: RNG.normal(0, 5.0, v.shape).astype(np.float32)
+             for k, v in _mlp_tensors().items()}
+    r = eng.save_model("b", {}, other)
+    assert r.n_new_bases == len(other), "distant tensors must become new bases"
+
+
+def test_tau_controls_vertex_creation(tmp_path):
+    base = _mlp_tensors()
+    perturbed = {k: v + RNG.normal(0, 0.05, v.shape).astype(np.float32)
+                 for k, v in base.items()}
+    # Large tau: perturbation accepted as delta.
+    eng_hi = StorageEngine(str(tmp_path / "hi"), tau=10.0, device="cpu")
+    eng_hi.save_model("base", {}, base)
+    r_hi = eng_hi.save_model("p", {}, perturbed)
+    assert r_hi.n_new_bases == 0
+    # Tiny tau: forced to create new vertices.
+    eng_lo = StorageEngine(str(tmp_path / "lo"), tau=1e-6, device="cpu")
+    eng_lo.save_model("base", {}, base)
+    r_lo = eng_lo.save_model("p", {}, perturbed)
+    assert r_lo.n_new_bases == len(base)
+
+
+def test_flexible_loading_bits(tmp_path):
+    """bits=8 load: bounded extra error, smaller payload read (Fig. 11)."""
+    eng = StorageEngine(str(tmp_path), device="cpu")
+    tensors = _mlp_tensors()
+    eng.save_model("m", {}, tensors)
+    full = eng.load_model("m").materialize()
+    flex = eng.load_model("m", bits=8).materialize()
+    for k in tensors:
+        diff = np.abs(full[k] - flex[k]).mean()
+        assert diff < 1e-3  # paper: ~1e-4 average
+        # flexible is not exact (unless nbit <= 8)
+    # flexible record carries truncated nbit
+    lm = eng.load_model("m", bits=8)
+    assert all(lm.record(k).meta.nbit <= 8 for k in lm.tensor_names())
+
+
+def test_share_counted_base_dequant(tmp_path):
+    """Tensors sharing one base dequantize it once (paper §4.3.2)."""
+    eng = StorageEngine(str(tmp_path), tau=10.0, device="cpu")
+    t = RNG.normal(0, 0.02, (32, 32)).astype(np.float32)
+    tensors = {"a": t, "b": t + 1e-5, "c": t - 1e-5}
+    eng.save_model("m", {}, tensors)
+    lm = eng.load_model("m")
+    recs = [lm.record(n) for n in lm.tensor_names()]
+    assert len({(r.dim_key, r.vertex_id) for r in recs}) == 1
+    out = lm.materialize()
+    for k, v in tensors.items():
+        assert np.abs(out[k] - v).max() <= DEFAULT_TOLERANCE * 1.001 + 1e-9
+    assert not lm._deq_base  # drained to zero → freed
+
+
+def test_pipeline_loader(tmp_path):
+    eng = StorageEngine(str(tmp_path), device="cpu")
+    tensors = _mlp_tensors()
+    eng.save_model("m", {}, tensors)
+    lm = eng.load_model("m")
+    from repro_torch.core import PipelineLoader
+
+    seen = {}
+    stats = PipelineLoader(lm).run(lambda name, t: seen.__setitem__(name, t))
+    assert set(seen) == set(tensors)
+    assert stats["wall"] > 0
+
+
+def test_persistence_across_engine_restart(tmp_path):
+    eng = StorageEngine(str(tmp_path), device="cpu")
+    tensors = _mlp_tensors()
+    eng.save_model("m", {"arch": "x"}, tensors)
+    del eng
+    eng2 = StorageEngine(str(tmp_path), device="cpu")
+    assert "m" in eng2.list_models()
+    loaded = eng2.load_model("m").materialize()
+    for k, v in tensors.items():
+        assert np.abs(loaded[k] - v).max() <= DEFAULT_TOLERANCE * 1.001 + 1e-9
+
+
+def test_index_cache_eviction(tmp_path):
+    eng = StorageEngine(str(tmp_path), cache_bytes=1, device="cpu")  # force eviction
+    for i, d in enumerate([100, 200, 300]):
+        t = {"w": RNG.normal(0, 0.02, d).astype(np.float32)}
+        eng.save_model(f"m{i}", {}, t)
+    # All models still loadable after their indexes were evicted to disk.
+    for i in range(3):
+        eng.load_model(f"m{i}").materialize()
+    assert eng.index_cache.misses >= 1
+
+
+def test_hnsw_recall_on_clusters():
+    """HNSW must find the right cluster representative (dedup correctness)."""
+    dim = 64
+    idx = HNSWIndex(dim, m=8, ef_construction=32, seed=0, device="cpu")
+    centers = RNG.normal(0, 1, (20, dim))
+    for c in centers:
+        idx.insert(c)
+    hits = 0
+    for i, c in enumerate(centers):
+        q = c + RNG.normal(0, 0.01, dim)
+        got = idx.search(q, k=1)[0][1]
+        hits += got == i
+    assert hits >= 18  # >=90% recall on well-separated clusters
+
+
+def test_hnsw_serialization_roundtrip():
+    idx = HNSWIndex(32, m=8, seed=1, device="cpu")
+    for _ in range(30):
+        idx.insert(RNG.normal(0, 1, 32))
+    blob = idx.to_bytes()
+    idx2 = HNSWIndex.from_bytes(blob, device="cpu")
+    q = RNG.normal(0, 1, 32)
+    assert idx.search(q, k=3) == idx2.search(q, k=3)
+
+
+def test_storage_accounting(tmp_path):
+    eng = StorageEngine(str(tmp_path), device="cpu")
+    base = _mlp_tensors()
+    eng.save_model("base", {}, base)
+    for i in range(3):
+        ft = {k: v + RNG.normal(0, 3e-4, v.shape).astype(np.float32)
+              for k, v in base.items()}
+        eng.save_model(f"ft{i}", {}, ft)
+    s = eng.storage_bytes()
+    assert s["total"] == s["pages"] + s["index"]
+    # Per-model amortized bytes < raw f32 bytes for fine-tunes.
+    raw = sum(v.nbytes for v in base.values())
+    assert eng.per_model_bytes("ft0") < raw

@@ -11,17 +11,20 @@ crashes at any individual I/O call — and after every schedule the store
 must *reopen* to a consistent catalog (possibly with models quarantined
 or the store degraded to read-only), never serve silently wrong tensor
 bytes, and come back fully clean after ``tools/fsck.py --repair
---drop-corrupt``.
+--drop-corrupt`` and after the port's ``repro_torch.tools.fsck``, each
+of which the campaign runs in turn.
 
 ``FAULT_CAMPAIGN_SCHEDULES`` (default 200; CI sets it explicitly) bounds
 how many (call, kind) schedules the sweep samples.
 """
 
+import functools
 import importlib.util
 import os
 import random
 import shutil
 import tempfile
+import types
 
 import numpy as np
 import pytest
@@ -35,15 +38,28 @@ from repro_torch.core.faultfs import (
     FaultPlan,
 )
 from repro_torch.core.integrity import IntegrityError
+from repro_torch.tools import fsck as port_fsck
 
 _FSCK_PATH = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "tools", "fsck.py",
 )
 _spec = importlib.util.spec_from_file_location("neurstore_fsck_c", _FSCK_PATH)
-fsck_mod = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(fsck_mod)
-fsck = fsck_mod.fsck
+_ref_fsck = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_ref_fsck)
+# The port's fsck with its engines on the CPU (they default to the card).
+_port_fsck = types.SimpleNamespace(
+    fsck=functools.partial(port_fsck.fsck, device="cpu"),
+    main=lambda argv: port_fsck.main([*argv, "--device", "cpu"]),
+    _check_accounting=functools.partial(port_fsck._check_accounting, device="cpu"),
+)
+
+
+@pytest.fixture(params=["reference", "port"])
+def fsck_mod(request):
+    """Each fsck: the reference's ``tools/fsck.py`` and the port's
+    ``repro_torch.tools.fsck``."""
+    return _ref_fsck if request.param == "reference" else _port_fsck
 
 
 # ------------------------------------------------------------- unit tests
@@ -245,7 +261,7 @@ def _campaign():
     return _CAMPAIGN
 
 
-def _run_trial(at_call: int, kind: str, bit: int) -> None:
+def _run_trial(at_call: int, kind: str, bit: int, fsck_mod) -> None:
     camp = _campaign()
     work = tempfile.mkdtemp(prefix="nsfault_trial_")
     try:
@@ -280,12 +296,12 @@ def _run_trial(at_call: int, kind: str, bit: int) -> None:
         finally:
             eng.close()
         # fsck must repair the store to fully clean.
-        rep = fsck(root, repair=True, drop_corrupt=True)
+        rep = fsck_mod.fsck(root, repair=True, drop_corrupt=True)
         assert rep["clean"], (
             f"fsck not clean after repair (call {at_call}, {kind}): "
             f"{rep['errors']}"
         )
-        assert fsck(root)["clean"]
+        assert fsck_mod.fsck(root)["clean"]
         # And the repaired store serves every surviving model.
         eng = StorageEngine(root, device="cpu")
         try:
@@ -318,8 +334,8 @@ def _schedules():
     return [(c, k, rng.randrange(4096)) for c, k in pairs]
 
 
-def test_fault_campaign():
+def test_fault_campaign(fsck_mod):
     sched = _schedules()
     assert sched, "workload made no faultable I/O calls?"
     for at_call, kind, bit in sched:
-        _run_trial(at_call, kind, bit)
+        _run_trial(at_call, kind, bit, fsck_mod)

@@ -20,9 +20,11 @@ The contract under test (see ``docs/durability.md``):
 - random single-bit flips / truncations anywhere in the store never
   escape detection — satellite S3 (hypothesis property + seeded fallback);
 - ``tools/fsck.py`` finds all of the above offline and repairs what is
-  safely repairable.
+  safely repairable, and so does the port's ``repro_torch.tools.fsck``:
+  every fsck case runs with each.
 """
 
+import functools
 import importlib.util
 import json
 import os
@@ -30,6 +32,7 @@ import random
 import shutil
 import tempfile
 import time
+import types
 
 import numpy as np
 import pytest
@@ -62,6 +65,7 @@ from repro_torch.core.pages import (
     write_page,
 )
 from repro_torch.core.quantize import quantize_delta
+from repro_torch.tools import fsck as port_fsck
 
 RNG = np.random.default_rng(7)
 
@@ -70,9 +74,21 @@ _FSCK_PATH = os.path.join(
     "tools", "fsck.py",
 )
 _spec = importlib.util.spec_from_file_location("neurstore_fsck", _FSCK_PATH)
-fsck_mod = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(_spec and fsck_mod)
-fsck = fsck_mod.fsck
+_ref_fsck = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_ref_fsck)
+# The port's fsck with its engines on the CPU (they default to the card).
+_port_fsck = types.SimpleNamespace(
+    fsck=functools.partial(port_fsck.fsck, device="cpu"),
+    main=lambda argv: port_fsck.main([*argv, "--device", "cpu"]),
+    _check_accounting=functools.partial(port_fsck._check_accounting, device="cpu"),
+)
+
+
+@pytest.fixture(params=["reference", "port"])
+def fsck_mod(request):
+    """Each fsck: the reference's ``tools/fsck.py`` and the port's
+    ``repro_torch.tools.fsck``."""
+    return _ref_fsck if request.param == "reference" else _port_fsck
 
 
 def _tensors(n=2, d=16, scale=1.0, seed=None):
@@ -373,7 +389,7 @@ def test_verify_store_reports_and_quarantines(store_with_corrupt_page):
     eng.close()
 
 
-def test_corrupt_index_quarantines_dependent_models(tmp_path):
+def test_corrupt_index_quarantines_dependent_models(tmp_path, fsck_mod):
     root = str(tmp_path)
     eng = StorageEngine(root, device="cpu")
     eng.save_model("m", {}, _tensors(seed=1))
@@ -386,31 +402,31 @@ def test_corrupt_index_quarantines_dependent_models(tmp_path):
         eng.load_model("m").materialize()
     assert eng.stats()["integrity"]["corrupt_models"] == ["m"]
     eng.close()
-    rep = fsck(root, repair=True, drop_corrupt=True)
+    rep = fsck_mod.fsck(root, repair=True, drop_corrupt=True)
     assert rep["clean"], rep
     assert any("index" in a for a in rep["actions"]), rep["actions"]
 
 
 # ------------------------------------------------------------------- fsck
-def test_fsck_clean_store(tmp_path):
+def test_fsck_clean_store(tmp_path, fsck_mod):
     root = str(tmp_path)
     eng = StorageEngine(root, device="cpu")
     eng.save_model("a", {}, _tensors(seed=1))
     eng.close()
-    rep = fsck(root)
+    rep = fsck_mod.fsck(root)
     assert rep["clean"] and not rep["errors"] and not rep["warnings"], rep
 
 
-def test_fsck_detects_and_repairs(store_with_corrupt_page):
+def test_fsck_detects_and_repairs(store_with_corrupt_page, fsck_mod):
     root, base = store_with_corrupt_page
-    rep = fsck(root)
+    rep = fsck_mod.fsck(root)
     assert not rep["clean"] and any("bad" in e for e in rep["errors"])
     # Repair without dropping: quarantines, store clean-with-warnings.
-    rep = fsck(root, repair=True)
+    rep = fsck_mod.fsck(root, repair=True)
     assert rep["clean"]
     assert any("quarantined" in w for w in rep["warnings"])
     # Drop: fully clean, healthy model intact.
-    rep = fsck(root, repair=True, drop_corrupt=True)
+    rep = fsck_mod.fsck(root, repair=True, drop_corrupt=True)
     assert rep["clean"] and not rep["warnings"], rep
     eng = StorageEngine(root, device="cpu")
     got = eng.load_model("good").materialize()
@@ -418,10 +434,10 @@ def test_fsck_detects_and_repairs(store_with_corrupt_page):
         np.testing.assert_array_equal(got[k], base[k])
     assert eng.list_models() == ["good"]
     eng.close()
-    assert fsck(root)["clean"]
+    assert fsck_mod.fsck(root)["clean"]
 
 
-def test_fsck_promotes_prev_snapshot(tmp_path):
+def test_fsck_promotes_prev_snapshot(tmp_path, fsck_mod):
     root = str(tmp_path)
     eng = StorageEngine(root, device="cpu")
     eng.save_model("a", {}, _tensors(seed=1))
@@ -429,7 +445,7 @@ def test_fsck_promotes_prev_snapshot(tmp_path):
     eng.close()
     meta = os.path.join(root, "meta.json")
     _flip(meta, byte=12)
-    rep = fsck(root, repair=True, drop_corrupt=True)
+    rep = fsck_mod.fsck(root, repair=True, drop_corrupt=True)
     assert rep["clean"], rep
     assert any("promoted" in a for a in rep["actions"]), rep["actions"]
     assert os.path.exists(meta + ".corrupt")  # evidence kept
@@ -439,7 +455,7 @@ def test_fsck_promotes_prev_snapshot(tmp_path):
     eng.close()
 
 
-def test_fsck_cli(tmp_path, capsys):
+def test_fsck_cli(tmp_path, capsys, fsck_mod):
     root = str(tmp_path)
     eng = StorageEngine(root, device="cpu")
     eng.save_model("a", {}, _tensors(seed=1))
