@@ -175,10 +175,14 @@ in a row is taken with CUDA events behind a spin kernel instead
    moments bit-identical to the unsharded step's (4 bf16
    ``flash_attention`` launches a step, counted), ms a step of both; (b)
    the serving path at glm4-9b's widths cut to 2 layers: a sharded 4 x 512
-   ``make_prefill_step`` (its first token) and 16 greedy sharded
-   ``make_serve_step`` tokens over a cache placed by ``cache_specs_tree``,
-   the tokens equal and the final cache bit-identical to the unsharded
-   path's; (c) ``launch.train.restore_sharded`` of a smoke-size checkpoint
+   ``make_prefill_step`` (its first token and logits) and 16 greedy
+   sharded ``make_serve_step`` tokens over a cache placed by
+   ``cache_specs_tree``, the logits, tokens and final cache bit-identical
+   to the unsharded path's. Under ``"tp"`` each runs, named so, on the
+   tensor-parallel route (DTensor activations over ``model``, every
+   attention launch through the ``local_map`` seam, counted) and on the
+   gathered route, in turns, each route's median ms printed. (c)
+   ``launch.train.restore_sharded`` of a smoke-size checkpoint
    the phase writes, every placed leaf bit-identical to the unsharded
    restore. Its seconds beside ``POD_BUDGET_S``.
 
@@ -315,13 +319,21 @@ EF_LEAF = "periods//slot0//seq//wq"
 # Phase 12 (the pod-mesh layer): the sharded train step at internlm2-1.8b's
 # widths and the sharded serve path at glm4-9b's (d_model 4096, 32 heads on
 # 2 KV heads of 128, d_ff 13,696, vocab 151,552), both cut to 2 layers, bf16,
-# on meshes of one rank over a world-size-1 NCCL group: every gather and
-# reduce is then the identity, so each sharded step must give its unsharded
-# step's bits. The serve path: a 4 x 512 prefill (its first token), then
-# 16 greedy serve steps at batch 4. Each mesh under each rule table.
+# on meshes of one rank over a world-size-1 NCCL group. The serve path: a
+# 4 x 512 prefill (its first token), then 16 greedy serve steps at batch 4.
+# Each mesh under each rule table. Under the "tp" tables each step runs on
+# both routes, asked for by name (launch.shardings.compute_route takes the
+# gathered one on a model axis of one rank unless "tp" is asked for), in
+# POD_TURNS turns on the (1, 1) mesh and one on (1, 1, 1): "tp" (DTensor
+# activations over the model axis, the attention kernel behind the
+# local_map seam) and "gathered" (weights gathered whole, local tensors).
+# Every gather, reduce and partial sum is the identity at one rank, so
+# every route must give the unsharded step's bits: losses, params and
+# moments, prefill logits, tokens and cache.
 POD_LAYERS, POD_TRAIN_STEPS, POD_PREFILL = 2, 3, (4, 512)
 POD_MESHES = (((1, 1), ("data", "model")), ((1, 1, 1), ("pod", "data", "model")))
 POD_PROFILES = ("tp", "dp")
+POD_TURNS = 2
 POD_BUDGET_S = 45.0
 # Phase 10 (the model zoo): (batch, prompt length) of each prefill, and
 # arctic-480b's depth: its 35 layers (477 B parameters) cannot be held on
@@ -3108,10 +3120,13 @@ def _tree_gap(got, want) -> tuple[bool, float]:
 
 def phase_pod_mesh() -> dict[str, int]:
     """Phase 12: the sharded train and serve steps and the elastic restore
-    on DTensor state, each against its unsharded counterpart."""
+    on DTensor state, each against its unsharded counterpart; under the
+    "tp" tables on the tensor-parallel route and the gathered one, in
+    turns."""
     import tempfile
 
     import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_config
@@ -3122,7 +3137,7 @@ def phase_pod_mesh() -> dict[str, int]:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_train_step
     from repro_torch.launch.train import restore_sharded
-    from repro_torch.models import init_cache, init_params
+    from repro_torch.models import init_cache, init_params, layers
     from repro_torch.optim import adamw_init
     from repro_torch.tree import tree_leaves
 
@@ -3134,16 +3149,27 @@ def phase_pod_mesh() -> dict[str, int]:
         f"widths (d_model {scfg.d_model}, {scfg.n_heads} heads on {scfg.n_kv_heads} KV heads "
         f"of {scfg.d_head}, d_ff {scfg.d_ff}, vocab {scfg.vocab_size}), depth cut to "
         f"{POD_LAYERS} layers, {tcfg.param_dtype}; meshes {[m for m, _ in POD_MESHES]} under "
-        f"{POD_PROFILES} over a world-size-1 NCCL group")
+        f"{POD_PROFILES} over a world-size-1 NCCL group; the \"tp\" tables on the \"tp\" and "
+        f"\"gathered\" routes in {POD_TURNS} turns")
     data = SyntheticLM(tcfg.vocab_size, seed=SEED + 12)
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in
                 data.batch(i, TRAIN_BATCH, TRAIN_LEN).items()} for i in range(POD_TRAIN_STEPS)]
     params0 = init_params(tcfg, SEED + 12, device=dev)
+    # The attention calls the seam makes: inside a tensor-parallel step,
+    # on each rank's local tensors (not DTensors).
+    seam = {"calls": 0}
+    attention = layers.chunked_attention
+
+    def seam_spy(q, k, v, **kw):
+        if sh.compute_mesh() is not None and not isinstance(q, DTensor):
+            seam["calls"] += 1
+        return attention(q, k, v, **kw)
 
     def train_run(step, params, opt, want=None):
         """POD_TRAIN_STEPS steps: the (loss, params, opt) of each (kept when
-        ``want`` is None, else each held to ``want``'s: its gaps), the ms a
-        step and the bf16 attention launches."""
+        ``want`` is None, else each held to ``want``'s: (bit-identical,
+        relative loss gap, max state gap) a step), the ms a step and the
+        bf16 attention launches."""
         kept, gaps, ms, launches = [], [], [], 0
         for i, b in enumerate(batches):
             before = ops.launch_counts()["flash_attention_bfloat16"]
@@ -3156,7 +3182,9 @@ def phase_pod_mesh() -> dict[str, int]:
             if want is None:
                 kept.append([m["loss"], params, opt])
             else:
-                gaps.append(_tree_gap([m["loss"], params, opt], want[i]))
+                same, state_gap = _tree_gap([m["loss"], params, opt], want[i])
+                loss_rel = abs(float(m["loss"]) - float(want[i][0])) / abs(float(want[i][0]))
+                gaps.append((same, loss_rel, _tree_gap([params, opt], want[i][1:])[1]))
         return kept, gaps, ms, launches
 
     # The unsharded path, twice: the second run says whether the step gives
@@ -3164,8 +3192,8 @@ def phase_pod_mesh() -> dict[str, int]:
     plain = make_train_step(tcfg, 1, lr=TRAIN_LR)
     want, _, plain_ms, _ = train_run(plain, params0, adamw_init(params0))
     _, repeat, _, _ = train_run(plain, params0, adamw_init(params0), want)
-    repeat_same = all(same for same, _ in repeat)
-    repeat_gap = max(gap for _, gap in repeat)
+    repeat_same = all(same for same, _, _ in repeat)
+    repeat_gap = max(max(loss, gap) for _, loss, gap in repeat)
     log(f"pod mesh (a): unsharded train steps {[round(t, 3) for t in plain_ms]} ms, losses "
         f"{[round(float(w[0]), 6) for w in want]}; a second unsharded run bit-identical "
         f"{repeat_same} (max gap {repeat_gap:.3e})")
@@ -3178,10 +3206,11 @@ def phase_pod_mesh() -> dict[str, int]:
     def serve_run(prefill, serve, params, cache):
         """The prefill's first token, then STEPS greedy tokens, each fed
         back: ((B, STEPS + 1) tokens, the final cache, prefill ms, median
-        ms a serve step)."""
+        ms a serve step, the prefill's (B, V) logits)."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tok = torch.argmax(prefill(params, {"tokens": prompts}), dim=-1).to(torch.int32)
+        logits = prefill(params, {"tokens": prompts})
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         toks, times = [tok], []
@@ -3191,22 +3220,24 @@ def phase_pod_mesh() -> dict[str, int]:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             toks.append(tok)
-        return torch.stack(toks, dim=1), cache, prefill_ms, float(np.median(times))
+        return torch.stack(toks, dim=1), cache, prefill_ms, float(np.median(times)), logits
 
     # Unsharded, twice: the second run's times are warm, and its bits say
     # whether the path repeats itself.
     runs = [serve_run(make_prefill_step(scfg), make_serve_step(scfg), sparams,
                       init_cache(scfg, b, STEPS, device=dev)) for _ in range(2)]
     want_toks, want_cache = runs[0][:2]
-    plain_prefill_ms, plain_serve_ms = runs[1][2:]
+    want_logits = runs[0][4]
+    plain_prefill_ms, plain_serve_ms = runs[1][2:4]
     serve_repeats = (bool(torch.equal(runs[1][0], want_toks))
                      and _tree_gap(runs[1][1], want_cache)[0])
     log(f"pod mesh (b): unsharded prefill {plain_prefill_ms:.6f} ms (first call "
         f"{runs[0][2]:.6f}), serve step {plain_serve_ms:.6f} ms (median of {STEPS}); a second "
         f"run's tokens and cache bit-identical {serve_repeats}; tokens {want_toks[:, :4].tolist()}")
     del runs
-
+    route_ms: dict[str, list] = {}
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    layers.chunked_attention = seam_spy
     try:
         ops.reset_launch_counts()
         for shape, names in POD_MESHES:
@@ -3214,32 +3245,50 @@ def phase_pod_mesh() -> dict[str, int]:
             multi_pod = "pod" in names
             for profile in POD_PROFILES:
                 what = f"{shape} {profile}"
-                # (a) the sharded train step
+                # (a) the sharded train step, on each route of the table
+                train_step = make_train_step(tcfg, 1, lr=TRAIN_LR)
                 with sh.use_mesh(mesh, multi_pod=multi_pod, profile=profile) as ctx:
                     p_spec = shd.param_specs_tree(params0, ctx)
                     o_spec = shd.opt_specs_tree(None, p_spec)
                     b_spec = shd.batch_specs_tree(batches[0], ctx)
-                    step = shd.sharded(make_train_step(tcfg, 1, lr=TRAIN_LR),
-                                       (p_spec, o_spec, shd.per_batch(b_spec)),
-                                       (p_spec, o_spec, None), ctx)
-                _, gaps, ms, launches = train_run(step, shd.place(params0, p_spec, mesh),
-                                                  shd.place(adamw_init(params0), o_spec, mesh),
-                                                  want)
-                same = all(s for s, _ in gaps)
-                gap = max(g for _, g in gaps)
-                line = (f"pod mesh (a) {what}: sharded train steps "
-                        f"{[round(t, 3) for t in ms]} ms (unsharded "
-                        f"{[round(t, 3) for t in plain_ms]}), {launches} bf16 flash_attention "
-                        f"launches (want "
-                        f"{2 * POD_LAYERS * POD_TRAIN_STEPS}); every step's loss, params and "
-                        f"moments bit-identical to the unsharded step's {same} (max gap {gap:.3e})")
-                # Bit-identity presumes a step that repeats its own bits; if
-                # the unsharded step did not, the sharded one may differ by
-                # as much as the unsharded repeat did.
-                if (launches != 2 * POD_LAYERS * POD_TRAIN_STEPS
-                        or not (same or (not repeat_same and gap <= repeat_gap))):
-                    fail(line)
-                log(line)
+                    specs = ((p_spec, o_spec, shd.per_batch(b_spec)), (p_spec, o_spec, None), ctx)
+                    # "tp" asked for by name; the default route at one rank.
+                    steps = [shd.sharded(train_step, *specs, cfg=tcfg, route=r)
+                             for r in _asked(profile)]
+                want_routes = ["tp", "gathered"] if profile == "tp" else ["gathered"]
+                if [st.route for st in steps] != want_routes:
+                    fail(f"pod mesh (a) {what}: routes {[st.route for st in steps]}, want "
+                         f"{want_routes}")
+                for turn in range(_turns(shape, profile)):
+                    for step in steps:
+                        calls = seam["calls"]
+                        _, gaps, ms, launches = train_run(
+                            step, shd.place(params0, p_spec, mesh),
+                            shd.place(adamw_init(params0), o_spec, mesh), want)
+                        calls = seam["calls"] - calls
+                        route_ms.setdefault(f"train {what} {step.route}", []).extend(ms)
+                        same = all(s for s, _, _ in gaps)
+                        loss_rel = max(loss for _, loss, _ in gaps)
+                        gap = max(g for _, _, g in gaps)
+                        line = (f"pod mesh (a) {what} route {step.route} turn {turn}: sharded "
+                                f"train steps {[round(t, 3) for t in ms]} ms (unsharded "
+                                f"{[round(t, 3) for t in plain_ms]}), {launches} bf16 "
+                                f"flash_attention launches (want {2 * POD_LAYERS * POD_TRAIN_STEPS}"
+                                f"), {calls} through the seam; every step's loss, params and "
+                                f"moments bit-identical to the unsharded step's {same} (loss "
+                                f"relative gap {loss_rel:.3e}, params and moments max gap "
+                                f"{gap:.3e})")
+                        # Bit-identity presumes a step that repeats its own
+                        # bits; if the unsharded step did not, the sharded
+                        # one may differ by as much as the unsharded repeat
+                        # did.
+                        ok = (launches == 2 * POD_LAYERS * POD_TRAIN_STEPS
+                              and calls == (launches if step.route == "tp" else 0)
+                              and (same or (not repeat_same
+                                            and max(loss_rel, gap) <= repeat_gap)))
+                        if not ok:
+                            fail(line)
+                        log(line)
                 # (b) the sharded serve path, under the serving rules
                 with sh.use_mesh(mesh, multi_pod=multi_pod, seq_shard=False, serve=True,
                                  profile=profile) as ctx:
@@ -3247,27 +3296,49 @@ def phase_pod_mesh() -> dict[str, int]:
                     p_spec = shd.param_specs_tree(sparams, ctx)
                     c_spec = shd.cache_specs_tree(cache, ctx, scfg.n_kv_heads)
                     rows = shd.per_batch(shd.batch_specs_tree({"tokens": prompts}, ctx))
-                    prefill = shd.sharded(make_prefill_step(scfg), (p_spec, rows),
-                                          (shd.per_batch(None),), ctx)
-                    serve = shd.sharded(make_serve_step(scfg),
-                                        (p_spec, shd.per_batch(c_spec), rows, None),
-                                        (shd.per_batch(None), shd.per_batch(c_spec)), ctx)
-                before = ops.launch_counts()["flash_attention_bfloat16"]
-                toks, cache, prefill_ms, serve_ms = serve_run(
-                    prefill, serve, shd.place(sparams, p_spec, mesh),
-                    shd.place(cache, c_spec, mesh))
-                launched = ops.launch_counts()["flash_attention_bfloat16"] - before
-                same, gap = _tree_gap(cache, want_cache)
-                line = (f"pod mesh (b) {what}: sharded prefill {prefill_ms:.6f} ms (unsharded "
-                        f"{plain_prefill_ms:.6f}), serve step {serve_ms:.6f} ms (unsharded "
-                        f"{plain_serve_ms:.6f}); {launched} bf16 flash_attention launches (want "
-                        f"{POD_LAYERS}); tokens equal {bool(torch.equal(toks, want_toks))}; final "
-                        f"cache bit-identical {same} (max gap {gap:.3e})")
-                if not (same and torch.equal(toks, want_toks)) or launched != POD_LAYERS:
-                    fail(line)
-                log(line)
-                del cache, prefill, serve, step
+                    pre, srv = make_prefill_step(scfg), make_serve_step(scfg)
+                    paths = [(shd.sharded(pre, (p_spec, rows), (shd.per_batch(None),), ctx,
+                                          cfg=scfg, route=r),
+                              shd.sharded(srv, (p_spec, shd.per_batch(c_spec), rows, None),
+                                          (shd.per_batch(None), shd.per_batch(c_spec)), ctx,
+                                          cfg=scfg, route=r))
+                             for r in _asked(profile)]
+                if [srv.route for _, srv in paths] != want_routes:
+                    fail(f"pod mesh (b) {what}: routes {[srv.route for _, srv in paths]}, want "
+                         f"{want_routes}")
+                sp = shd.place(sparams, p_spec, mesh)
+                for turn in range(_turns(shape, profile)):
+                    for prefill, serve in paths:
+                        route = serve.route
+                        before = ops.launch_counts()["flash_attention_bfloat16"]
+                        calls = seam["calls"]
+                        toks, cache, prefill_ms, serve_ms, logits = serve_run(
+                            prefill, serve, sp,
+                            shd.place(init_cache(scfg, b, STEPS, device=dev), c_spec, mesh))
+                        launched = ops.launch_counts()["flash_attention_bfloat16"] - before
+                        calls = seam["calls"] - calls
+                        route_ms.setdefault(f"prefill {what} {route}", []).append(prefill_ms)
+                        route_ms.setdefault(f"serve {what} {route}", []).append(serve_ms)
+                        same, gap = _tree_gap(cache, want_cache)
+                        logits_gap = float((logits.float() - want_logits.float()).abs().max())
+                        tokens_equal = bool(torch.equal(toks, want_toks))
+                        line = (f"pod mesh (b) {what} route {route} turn {turn}: sharded prefill "
+                                f"{prefill_ms:.6f} ms (unsharded {plain_prefill_ms:.6f}), serve "
+                                f"step {serve_ms:.6f} ms (unsharded {plain_serve_ms:.6f}); "
+                                f"{launched} bf16 flash_attention launches (want {POD_LAYERS}), "
+                                f"{calls} through the seam; prefill logits max gap "
+                                f"{logits_gap:.3e}; tokens equal {tokens_equal}; final cache "
+                                f"bit-identical {same} (max gap {gap:.3e})")
+                        ok = (tokens_equal and launched == POD_LAYERS and same
+                              and logits_gap == 0.0
+                              and calls == (launched if route == "tp" else 0))
+                        if not ok:
+                            fail(line)
+                        log(line)
+                del cache, paths, steps
                 torch.cuda.empty_cache()
+        for key, ms in route_ms.items():
+            log(f"pod mesh: {key}: median {float(np.median(ms)):.6f} ms of {len(ms)}")
 
         # (c) the elastic restore of a checkpoint this phase writes
         with tempfile.TemporaryDirectory() as root:
@@ -3295,12 +3366,26 @@ def phase_pod_mesh() -> dict[str, int]:
             mgr.close()
         counts = ops.launch_counts()
     finally:
+        layers.chunked_attention = attention
         dist.destroy_process_group()
     del params0, sparams, want, want_cache
     torch.cuda.empty_cache()
     phase_s = time.perf_counter() - t_phase
     log(f"pod mesh phase (12): {phase_s:.3f} s of its {POD_BUDGET_S:.0f} s budget")
     return counts
+
+
+def _asked(profile: str) -> tuple:
+    """The routes phase 12 asks ``sharded`` for under a table: "tp" by
+    name and the default (the gathered route at one rank) under "tp", the
+    default under "dp"."""
+    return ("tp", None) if profile == "tp" else (None,)
+
+
+def _turns(shape, profile: str) -> int:
+    """The turns of phase 12's routes on a mesh: POD_TURNS under the "tp"
+    tables on the first mesh, one on the others and under "dp"."""
+    return POD_TURNS if profile == "tp" and shape == POD_MESHES[0][0] else 1
 
 
 def main() -> int:

@@ -46,6 +46,16 @@ def planar_plane_bytes(count: int) -> int:
 _PLANE_CHUNK = 1 << 16
 
 
+def _word(nbit: int):
+    """The narrowest unsigned dtype that holds ``nbit``-bit values: the
+    planar sweeps shift and mask words of that width (the same bits as in
+    uint64, a fraction of the memory traffic)."""
+    for dt in (np.uint8, np.uint16, np.uint32):
+        if nbit <= np.iinfo(dt).bits:
+            return dt
+    return np.uint64
+
+
 def pack_bits_planar(values: np.ndarray, nbit: int) -> bytes:
     """Pack as ``nbit`` bit-planes, most-significant plane first.
 
@@ -62,15 +72,16 @@ def pack_bits_planar(values: np.ndarray, nbit: int) -> bytes:
     """
     if nbit == 0 or values.size == 0:
         return b""
-    v = np.ascontiguousarray(values.ravel(), dtype=np.uint64)
+    word = _word(nbit)
+    v = np.ascontiguousarray(values.ravel()).astype(word, copy=False)
     n = v.size
     plane_nbytes = planar_plane_bytes(n)
-    shifts = np.arange(nbit - 1, -1, -1, dtype=np.uint64)[:, None]
+    shifts = np.arange(nbit - 1, -1, -1, dtype=word)[:, None]
     out = np.empty((nbit, plane_nbytes), dtype=np.uint8)
     chunk = _PLANE_CHUNK  # multiple of 8 → chunk planes stay byte-aligned
     for start in range(0, n, chunk):
         seg = v[start:start + chunk]
-        bits = ((seg[None, :] >> shifts) & np.uint64(1)).astype(np.uint8)
+        bits = ((seg[None, :] >> shifts) & word(1)).astype(np.uint8)
         out[:, start // 8: start // 8 + (seg.size + 7) // 8] = np.packbits(bits, axis=1)
     return out.tobytes()
 
@@ -93,7 +104,7 @@ def unpack_bits_planar(data: bytes, nbit: int, count: int, b: int | None = None)
     plane_nbytes = planar_plane_bytes(count)
     planes = np.frombuffer(data, dtype=np.uint8)[: b * plane_nbytes]
     planes = planes.reshape(b, plane_nbytes)
-    acc = np.empty(count, dtype=np.int64)
+    acc = np.empty(count, dtype=_word(b))
     chunk = _PLANE_CHUNK
     for start in range(0, count, chunk):
         stop = min(start + chunk, count)
@@ -104,4 +115,4 @@ def unpack_bits_planar(data: bytes, nbit: int, count: int, b: int | None = None)
         for k in range(1, b):
             out <<= 1
             out |= bits[k]
-    return acc
+    return acc.astype(np.int64)

@@ -73,6 +73,7 @@ import json
 import os
 import threading
 from collections import Counter, OrderedDict, deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -225,6 +226,30 @@ EXPLAIN_FLUSH_MAX = 128
 # before the next chunk probes, so cross-chunk dedup still happens — via
 # the index itself instead of an in-memory candidate matrix.
 PROBE_CHUNK_ELEMS = 1 << 23
+
+# Threads of a save's quantize stage: each delta's quantization and planar
+# bit-packing are numpy sweeps that release the GIL, so a save's tensors
+# encode side by side (the records keep the tensors' order, and the page
+# its bytes).
+ENCODE_WORKERS = min(6, os.cpu_count() or 1)
+
+
+def _encode_records(jobs: list, p: float) -> list[TensorRecord]:
+    """The page record of each ``jobs[i] = (name, shape, dim_key,
+    vertex_id, delta)``: its delta quantized at tolerance ``p`` and
+    planar-packed, over ``ENCODE_WORKERS`` threads, in the jobs' order.
+    Each job is dropped once encoded, releasing its delta."""
+    def one(i: int) -> TensorRecord:
+        name, shape, dim_key, vid, delta = jobs[i]
+        jobs[i] = None
+        qd, meta = quantize_delta(delta, p)
+        rec = TensorRecord(name=name, shape=shape, dim_key=dim_key, vertex_id=vid,
+                           meta=meta, qdelta=qd)
+        rec.payload = encode_payload(rec)
+        return rec
+
+    with ThreadPoolExecutor(max_workers=ENCODE_WORKERS) as pool:
+        return list(pool.map(one, range(len(jobs))))
 
 
 @dataclasses.dataclass
@@ -1169,35 +1194,25 @@ class StorageEngine:
             # Phase 2 (unlocked): adaptive n-bit quantization of each delta
             # (Eq. 2/3) + planar bit-packing + page assembly, in tensor
             # order. Deltas are released as they are consumed.
-            records: list[TensorRecord] = []
             nbits: list[int] = []
             explain: list[dict] = []
             with trace("quantize", n_tensors=len(items)):
-                for i, (tname, shape, src) in enumerate(items):
-                    vid, delta = bases[i]
-                    bases[i] = None
-                    qd, meta = quantize_delta(delta, p)
-                    nbits.append(meta.nbit)
-                    rec = TensorRecord(
-                        name=tname,
-                        shape=shape,
-                        dim_key=src.size,
-                        vertex_id=vid,
-                        meta=meta,
-                        qdelta=qd,
-                    )
-                    rec.payload = encode_payload(rec)
-                    records.append(rec)
+                jobs = [(tname, shape, src.size, *bases[i])
+                        for i, (tname, shape, src) in enumerate(items)]
+                bases = None
+                records = _encode_records(jobs, p)
+                for i, rec in enumerate(records):
+                    nbits.append(rec.meta.nbit)
                     ex = probe_ex[i]
                     explain.append({
-                        "tensor": tname,
-                        "dim": int(src.size),
+                        "tensor": rec.name,
+                        "dim": int(rec.dim_key),
                         "vertex_id": int(ex["vertex_id"]),
                         "outcome": ex["outcome"],
                         "probe_distance": ex["probe_distance"],
                         "delta_range": ex["delta_range"],
                         "tau": float(tau_),
-                        "nbit": int(meta.nbit),
+                        "nbit": int(rec.meta.nbit),
                         "delta_bytes": len(rec.payload),
                         "error_bound": float(p),
                     })
@@ -1411,34 +1426,24 @@ class StorageEngine:
             spaces_per_model: list[tuple] = []
             with trace("quantize", n_models=len(all_items)):
                 for mi, items in enumerate(all_items):
-                    records: list[TensorRecord] = []
                     nbits: list[int] = []
                     explain: list[dict] = []
-                    for i, (tname, shape, src) in enumerate(items):
-                        vid, delta = bases[mi][i]
-                        bases[mi][i] = (vid, None)  # release the delta
-                        qd, meta = quantize_delta(delta, p)
-                        nbits.append(meta.nbit)
-                        rec = TensorRecord(
-                            name=tname,
-                            shape=shape,
-                            dim_key=src.size,
-                            vertex_id=vid,
-                            meta=meta,
-                            qdelta=qd,
-                        )
-                        rec.payload = encode_payload(rec)
-                        records.append(rec)
+                    jobs = [(tname, shape, src.size, *bases[mi][i])
+                            for i, (tname, shape, src) in enumerate(items)]
+                    bases[mi] = None  # the jobs release each delta
+                    records = _encode_records(jobs, p)
+                    for i, rec in enumerate(records):
+                        nbits.append(rec.meta.nbit)
                         ex = probe_ex[mi][i]
                         explain.append({
-                            "tensor": tname,
-                            "dim": int(src.size),
+                            "tensor": rec.name,
+                            "dim": int(rec.dim_key),
                             "vertex_id": int(ex["vertex_id"]),
                             "outcome": ex["outcome"],
                             "probe_distance": ex["probe_distance"],
                             "delta_range": ex["delta_range"],
                             "tau": float(tau_),
-                            "nbit": int(meta.nbit),
+                            "nbit": int(rec.meta.nbit),
                             "delta_bytes": len(rec.payload),
                             "error_bound": float(p),
                         })

@@ -1,7 +1,7 @@
 """Logical-axis sharding context (the rules for the production mesh).
 
 The port of the reference's ``repro/distributed/sharding.py``. Model code
-may annotate activations with *logical* names (``constrain(x,
+annotates activations with *logical* names (``constrain(x,
 "residual")``); the launcher activates a rule table mapping logical names
 to partition specs over the live ``DeviceMesh``. Outside a mesh context the
 calls are no-ops, so the same code runs single-device tests and sharded
@@ -20,10 +20,23 @@ What differs from the reference:
 * :func:`placements` turns a spec into DTensor placements, one a mesh
   dimension (``Shard(d)`` or ``Replicate()``), which is what
   ``distribute_tensor`` and ``redistribute`` take.
-* ``constrain`` redistributes a DTensor and returns any other tensor as it
-  is: the port's models compute on local tensors
-  (``launch.shardings.sharded``), so they carry no ``constrain`` calls, and
-  a plain tensor inside a context is left alone.
+* Tensor-parallel compute: inside a step that ``launch.shardings.sharded``
+  runs on the ``"tp"`` route, the activations are DTensors over the
+  ``model`` axis alone (:func:`tensor_parallel`; each rank's rows over the
+  data-parallel axes are its local batch). There ``constrain``
+  redistributes to the rule's ``model`` placement (a dim that does not
+  divide over the axis is left whole, as ``fit_spec`` leaves a
+  parameter), and takes a plain tensor as the same on every rank of the
+  axis. GSPMD partitions every op by its operands' layouts; DTensor's own
+  propagation may gather a weight to do so, so the model's products go
+  through :func:`einsum`, which computes each rank's part of the product
+  on its shards and says where the result lies (sharded, or a partial sum
+  that a later ``constrain`` reduces), and never moves an operand that is
+  already sharded. Functions that must see whole tensors (the attention
+  kernel, RoPE, the cross entropy over vocabulary shards) run behind
+  :func:`local_seam`, a ``local_map`` whose placements come from rule
+  names. Outside such a step a DTensor is redistributed over the whole
+  mesh and any other tensor is returned as it is.
 * ``data_parallel_sum`` / ``data_parallel_size`` are the gradient
   reduction that GSPMD inserts for the reference: inside a sharded step
   they sum over the data-parallel ranks, outside one they are the identity.
@@ -34,9 +47,10 @@ from __future__ import annotations
 import contextlib
 import threading
 
-__all__ = ["P", "ShardingCtx", "cache_logical", "constrain", "current", "data_parallel",
-           "data_parallel_size", "data_parallel_sum", "mesh_axis_sizes", "placements",
-           "spec", "use_mesh"]
+__all__ = ["P", "ShardingCtx", "activate", "cache_logical", "compute_mesh", "constrain",
+           "current", "data_parallel", "data_parallel_size", "data_parallel_sum", "einsum",
+           "local_seam", "mesh_axis_sizes", "model_rank", "placements", "replicated", "resume",
+           "snapshot", "spec", "tensor_parallel", "unsplit", "use_mesh"]
 
 _state = threading.local()
 
@@ -270,19 +284,26 @@ def placements(s: P, mesh) -> tuple:
 
 
 class ShardingCtx:
-    def __init__(self, mesh, rules: dict, serve: bool = False):
+    def __init__(self, mesh, rules: dict, serve: bool = False, profile: str = "tp"):
         self.mesh = mesh
         self.rules = rules
         self.serve = serve
+        self.profile = profile
 
     def spec(self, name: str) -> P:
         return self.rules[name]
 
     def constrain(self, x, name: str):
-        """``x`` redistributed to the rule's placements if it is a DTensor;
-        any other tensor as it is (the port computes on local tensors)."""
+        """``x`` redistributed to the rule's placements. Inside a
+        tensor-parallel step: over the compute mesh (:func:`tensor_parallel`),
+        a plain tensor first taken as replicated over it. Outside one: a
+        DTensor over the whole mesh, any other tensor as it is."""
         from torch.distributed.tensor import DTensor
 
+        sub = compute_mesh()
+        if sub is not None:
+            x = replicated(x)
+            return _to(x, _compute_placements(self.rules[name], sub, tuple(x.shape)))
         if not isinstance(x, DTensor):
             return x
         return x.redistribute(self.mesh, placements(self.rules[name], self.mesh))
@@ -331,7 +352,15 @@ def use_mesh(mesh, multi_pod: bool = False, seq_shard: bool = True,
                  else _rules_single_pod(seq_shard, serve))
         if serve:
             rules = _serving_params(rules)
-    ctx = ShardingCtx(mesh, rules)
+    ctx = ShardingCtx(mesh, rules, serve=serve, profile=profile)
+    with activate(ctx):
+        yield ctx
+
+
+@contextlib.contextmanager
+def activate(ctx: ShardingCtx | None):
+    """``ctx`` as the current context inside the block (a step built under
+    ``use_mesh`` runs under its table wherever it is called)."""
     prev = getattr(_state, "ctx", None)
     _state.ctx = ctx
     try:
@@ -383,7 +412,212 @@ def data_parallel_sum(tree):
     replicate = [Replicate()] * mesh.ndim
 
     def reduce(x):
-        d = DTensor.from_local(x, mesh, partial, run_check=False)
-        return d.redistribute(mesh, replicate).to_local()
+        # A DTensor of a tensor-parallel step: its local shard is summed,
+        # its placement over ``model`` kept.
+        local = x.to_local() if isinstance(x, DTensor) else x
+        d = DTensor.from_local(local, mesh, partial, run_check=False)
+        out = d.redistribute(mesh, replicate).to_local()
+        if isinstance(x, DTensor):
+            return DTensor.from_local(out, x.device_mesh, x.placements, run_check=False,
+                                      shape=x.shape, stride=x.stride())
+        return out
 
     return tree_map(reduce, tree)
+
+
+# ------------------------------------------------- tensor-parallel compute
+@contextlib.contextmanager
+def tensor_parallel(mesh):
+    """Inside the block, the step's activations are DTensors over
+    ``mesh`` (the 1-D ``model`` submesh of the step's mesh):
+    :func:`constrain`, :func:`einsum` and :func:`local_seam` act over it.
+    ``launch.shardings.sharded`` opens it around a step on the ``"tp"``
+    route; ``None`` closes it (a nested step on the gathered route)."""
+    prev = getattr(_state, "tp", None)
+    _state.tp = mesh
+    try:
+        yield mesh
+    finally:
+        _state.tp = prev
+
+
+def compute_mesh():
+    """The mesh of the current tensor-parallel step, or None outside one."""
+    return getattr(_state, "tp", None)
+
+
+def snapshot() -> dict:
+    """The current context, data-parallel and tensor-parallel state."""
+    return {k: getattr(_state, k, None) for k in ("ctx", "dp", "tp")}
+
+
+@contextlib.contextmanager
+def resume(state: dict):
+    """``state`` (a :func:`snapshot`) as the current state inside the
+    block: a recompute that the autograd engine runs on its own thread
+    (a period under remat, on the card) sees the step's tables."""
+    prev = snapshot()
+    for k, v in state.items():
+        setattr(_state, k, v)
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            setattr(_state, k, v)
+
+
+def model_rank() -> int:
+    """This rank's coordinate on the compute mesh (0 outside a step)."""
+    sub = compute_mesh()
+    return 0 if sub is None else int(sub.get_local_rank())
+
+
+def _compute_placements(s: P, mesh, shape: tuple) -> tuple:
+    """The placements of spec ``s`` over the compute mesh ``mesh`` (whose
+    axes are a subset of the spec's mesh): ``Shard(d)`` where tensor dim
+    ``d``'s entry names the axis and its size divides over it, else
+    ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for axis, n in zip(mesh.mesh_dim_names, mesh.shape):
+        place = Replicate()
+        for dim, entry in enumerate(s):
+            if axis in _axes(entry) and dim < len(shape) and shape[dim] % n == 0:
+                place = Shard(dim)
+        out.append(place)
+    return tuple(out)
+
+
+def _to(x, target: tuple):
+    """DTensor ``x`` redistributed to ``target`` unless it is there."""
+    if tuple(x.placements) == tuple(target):
+        return x
+    return x.redistribute(x.device_mesh, target)
+
+
+def replicated(x):
+    """Inside a tensor-parallel step, the plain tensor ``x`` (the same on
+    every rank of the compute mesh: a batch's rows, positions, masks) as a
+    replicated DTensor; anything else as it is."""
+    sub = compute_mesh()
+    if sub is None or not _is_plain_tensor(x):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(x, sub, [Replicate()] * sub.ndim, run_check=False)
+
+
+def _is_plain_tensor(x) -> bool:
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, torch.Tensor) and not isinstance(x, DTensor)
+
+
+def unsplit(x, *dims: int):
+    """DTensor ``x`` with its partial sums reduced and the tensor dims
+    ``dims`` made whole (all-reduce / all-gather over the compute mesh);
+    anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return x
+    nd = x.ndim
+    whole = {d % nd for d in dims}
+    target = tuple(Replicate() if p.is_partial() or (p.is_shard() and p.dim in whole) else p
+                   for p in x.placements)
+    return _to(x, target)
+
+
+def _resolve(where, x):
+    """Placements over the compute mesh for argument ``x``: a rule name,
+    placements as given, or None (a non-tensor argument)."""
+    if where is None or isinstance(where, tuple) and (not where or not isinstance(where[0], str)):
+        return where
+    if isinstance(where, str):
+        return _compute_placements(current().rules[where], compute_mesh(), tuple(x.shape))
+    return tuple(where)
+
+
+def local_seam(fn, out, ins, grads=None):
+    """``fn``, a function of local tensors, over the current step's
+    DTensors: a ``local_map`` whose placements are rule names (resolved
+    against each argument's shape, as :func:`constrain` resolves them) or
+    placements tuples; ``ins`` has one entry an argument (None for a
+    non-tensor or plain-tensor argument, which passes as it is), ``out``
+    one an output (a rule name resolved against the first argument's
+    shape, or placements), ``grads`` the placements of the inputs'
+    gradients where they differ from ``ins`` (a replicated input that
+    each rank uses only in part has a partial gradient). The arguments are
+    redistributed to ``ins`` first. Outside a tensor-parallel step, ``fn``
+    itself."""
+
+    def call(*args):
+        sub = compute_mesh()
+        if sub is None or not any(not _is_plain_tensor(a) and hasattr(a, "placements")
+                                  for a in args):
+            return fn(*args)
+        from torch.distributed.tensor.experimental import local_map
+
+        in_p = tuple(_resolve(w, a) for w, a in zip(ins, args))
+        args = tuple(replicated(a) if p is not None else a for a, p in zip(args, in_p))
+        outs = out if isinstance(out, list) else [out]
+        out_p = tuple(_resolve(w, args[0]) for w in outs)
+        g = None if grads is None else tuple(
+            p if w is None else _resolve(w, a) for w, p, a in zip(grads, in_p, args))
+        # local_map reads a tuple as one placements list an output.
+        mapped = local_map(fn, out_placements=(tuple(list(o) for o in out_p)
+                                               if isinstance(out, list) else list(out_p[0])),
+                           in_placements=in_p, in_grad_placements=g, device_mesh=sub,
+                           redistribute_inputs=True)
+        return mapped(*args)
+
+    return call
+
+
+def einsum(eq: str, *operands, local=None):
+    """``torch.einsum(eq, *operands)`` (or ``local(*operands)``, a function
+    computing the same product, such as ``torch.matmul``); inside a
+    tensor-parallel step, over DTensor operands, each rank's part of it.
+
+    On each compute-mesh axis the operands after the first are held where
+    they lie (the weights and the cache: never gathered here), and they
+    must be sharded on one index letter at most. The first operand (the
+    activation) follows them: it is moved to that letter (or made whole if
+    its term lacks it) where it is sharded on another. Replicated operands
+    that carry the letter are sliced to it (no communication). The result
+    is sharded on the letter, or, where the letter is summed over, a
+    partial sum (``Partial()``) that a later :func:`constrain` or
+    :func:`unsplit` reduces. A partial operand is reduced first."""
+    import torch
+
+    fn = local or (lambda *xs: torch.einsum(eq, *xs))
+    sub = compute_mesh()
+    if sub is None or all(_is_plain_tensor(o) for o in operands):
+        return fn(*operands)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    lhs, rhs = eq.replace(" ", "").split("->")
+    terms = lhs.split(",")
+    operands = [unsplit(replicated(o)) for o in operands]
+    in_p, grad_p, out_p = [], [], []
+    for axis in range(sub.ndim):
+        held = {t[o.placements[axis].dim] for t, o in zip(terms[1:], operands[1:])
+                if o.placements[axis].is_shard()}
+        if len(held) > 1:
+            raise ValueError(f"einsum {eq!r}: the held operands are sharded on {sorted(held)} "
+                             f"over the compute mesh's axis {axis}")
+        first = operands[0].placements[axis]
+        letter = held.pop() if held else (terms[0][first.dim] if first.is_shard() else "")
+        in_p.append([Shard(t.index(letter)) if letter and letter in t else Replicate()
+                     for t in terms])
+        # A replicated operand without the letter meets only this rank's
+        # part of it: its gradient is a partial sum.
+        grad_p.append([Shard(t.index(letter)) if letter and letter in t
+                       else (Partial() if letter else Replicate()) for t in terms])
+        out_p.append(Replicate() if not letter else
+                     Shard(rhs.index(letter)) if letter in rhs else Partial())
+    ins = [tuple(p[i] for p in in_p) for i in range(len(terms))]
+    grads = [tuple(p[i] for p in grad_p) for i in range(len(terms))]
+    return local_seam(fn, tuple(out_p), ins, grads)(*operands)

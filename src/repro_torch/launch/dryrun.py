@@ -14,11 +14,13 @@ Per cell it reports the reference's record keys:
   params, optimizer state, batch and cache (``output_bytes`` likewise of
   the outputs). ``temp_bytes`` and ``peak_hbm_bytes`` have no meta-device
   counterpart (nothing allocates) and are null.
-* ``hlo_flops``: ``torch.utils.flop_counter.FlopCounterMode`` over the
-  step on 1- and 2-period probes, extrapolated to the full depth as the
-  reference's ``probe_costs`` does; ``hlo_bytes``: the bytes the step's
-  non-view ops read and write (eager PyTorch fuses nothing); collective
-  bytes from the step's recorded collectives (``hlo_stats``).
+* ``hlo_flops``: ``hlo_stats.LocalFlopCounter`` (each rank's local ops)
+  over the step on 1- and 2-period probes, extrapolated to the full depth
+  as the reference's ``probe_costs`` does; ``hlo_bytes``: the bytes the
+  step's non-view ops read and write on this rank (eager PyTorch fuses
+  nothing); collective bytes from the step's recorded collectives
+  (``hlo_stats``), the redistributions inside a tensor-parallel step's
+  ops included.
 * ``compile_s``: the seconds to place the full-depth cell's arguments on
   the fake mesh (there is no compile).
 * the three roofline terms over one H100's rates (``launch/mesh.py``) and
@@ -30,10 +32,18 @@ Per cell it reports the reference's record keys:
   backward, plain PyTorch, does write them), so ``hlo_bytes`` overstates a
   card's forward.
 
-The port's sharded step computes on local tensors
-(``launch.shardings.sharded``): each rank runs the whole model on its rows
-of the batch, so under ``--profile tp`` the ranks of a ``model`` group
-repeat each other's compute, which ``useful_flops_ratio`` shows.
+Each cell names its route over ``model`` (``launch.shardings.compute_route``,
+the record's ``route``). Under ``--profile tp`` a dense model's step is
+split over ``model`` (``"tp"``): each rank keeps its shards of the
+weights, computes its heads, FFN columns and vocabulary columns, and the
+collectives are the residual's gathers and reductions and the FSDP
+gathers over ``data``. The recurrent and MoE models, the compressed
+serving step and ``--profile dp`` take the gathered route: each rank
+gathers every weight whole and runs the whole model on its rows, so the
+ranks of a ``model`` group repeat each other's compute, which
+``useful_flops_ratio`` shows. On the CPU's process groups DTensor moves a
+shard to another dim by an all-gather and a slice (no all-to-all), and
+the fake group is one of them: such a move is counted as an all-gather.
 
 The fake group takes the process's default group, so run this as its own
 process:
@@ -55,7 +65,7 @@ from ..configs import get_config, list_archs
 from ..distributed import sharding as sh
 from ..models.config import SHAPES, ModelConfig, ShapeConfig
 from . import shardings as shd
-from .hlo_stats import StepRecorder, collective_stats
+from .hlo_stats import LocalFlopCounter, StepRecorder, collective_stats
 from .mesh import BF16_PEAK_FLOPS, HBM_BW, NVLINK_BW, make_production_mesh
 from .specs import batch_specs, decode_cache_specs, model_specs, opt_specs
 from .steps import make_prefill_step, make_serve_step, make_train_step, pick_microbatches
@@ -142,6 +152,7 @@ class Cell:
 
     step: object
     args: tuple
+    route: str  # over ``model``: "tp" or "gathered" (shardings.compute_route)
     arg_bytes: int  # this rank's shards of the tensor arguments
     out_bytes: int  # and of the outputs, as the output specs place them
 
@@ -152,8 +163,10 @@ def _meta(shape, dtype) -> torch.Tensor:
 
 def lower_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, multi_pod: bool,
                force_single_micro: bool = False, profile: str = "tp",
-               compressed: bool = False) -> Cell:
-    """Specs + placed stand-ins + the sharded step of one cell."""
+               compressed: bool = False, n_micro: int | None = None) -> Cell:
+    """Specs + placed stand-ins + the sharded step of one cell (a train
+    cell's microbatches: ``n_micro``, else one with ``force_single_micro``,
+    else :func:`_microbatches`)."""
     seq_shard = shape.kind != "decode"
     with sh.use_mesh(mesh, multi_pod=multi_pod, seq_shard=seq_shard,
                      serve=not shape.is_train, profile=profile) as ctx:
@@ -168,9 +181,10 @@ def lower_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, multi_pod: bool,
             grad_dtype = torch.bfloat16 if big else torch.float32
             o_specs = opt_specs(cfg, moment_dtype)
             o_spec = shd.opt_specs_tree(o_specs, p_spec)
-            n_micro = 1 if force_single_micro else _microbatches(cfg, shape, mesh, profile)
+            if n_micro is None:
+                n_micro = 1 if force_single_micro else _microbatches(cfg, shape, mesh, profile)
             step = shd.sharded(make_train_step(cfg, n_micro, grad_dtype=grad_dtype),
-                               (p_spec, o_spec, batch), (p_spec, o_spec, None), ctx)
+                               (p_spec, o_spec, batch), (p_spec, o_spec, None), ctx, cfg=cfg)
             args = (shd.place(p_specs, p_spec, mesh), shd.place(o_specs, o_spec, mesh),
                     shd.place(b_specs, b_spec, mesh))
             # params and moments back in place, and the float32 loss
@@ -179,7 +193,7 @@ def lower_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, multi_pod: bool,
             logits = shd.fit_spec("tokens", ctx.spec("tokens"),
                                   (shape.global_batch, cfg.vocab_size), mesh)
             step = shd.sharded(make_prefill_step(cfg), (p_spec, batch),
-                               (shd.per_batch(logits),), ctx)
+                               (shd.per_batch(logits),), ctx, cfg=cfg)
             args = (shd.place(p_specs, p_spec, mesh), shd.place(b_specs, b_spec, mesh))
             out_bytes = shd.local_bytes(shd.place(
                 _meta((shape.global_batch, cfg.vocab_size), torch.float32), logits, mesh))
@@ -197,20 +211,20 @@ def lower_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, multi_pod: bool,
                 serve = make_compressed_serve_step(cfg)
             else:
                 serve = make_serve_step(cfg)
+            # The compressed parameters keep the gathered route.
             step = shd.sharded(serve, (p_spec, shd.per_batch(c_spec), batch, None),
-                               (shd.per_batch(None), shd.per_batch(c_spec)), ctx)
+                               (shd.per_batch(None), shd.per_batch(c_spec)), ctx,
+                               cfg=None if compressed else cfg)
             args = (shd.place(p_specs, p_spec, mesh), shd.place(c_specs, c_spec, mesh),
                     shd.place(b_specs, b_spec, mesh), 0)
             # every rank's int32 tokens, and the cache back in place
             out_bytes = 4 * shape.global_batch + shd.local_bytes(args[1])
-        return Cell(step, args, shd.local_bytes(list(args[:3])), out_bytes)
+        return Cell(step, args, step.route, shd.local_bytes(list(args[:3])), out_bytes)
 
 
 def _run_costs(cell: Cell, n_devices: int) -> dict:
-    from torch.utils.flop_counter import FlopCounterMode
-
     rec = StepRecorder()
-    with FlopCounterMode(display=False) as flops, rec:
+    with LocalFlopCounter(display=False) as flops, rec:
         cell.step(*cell.args)
     colls = collective_stats(rec.collectives, n_devices)
     return {"flops": float(flops.get_total_flops()), "bytes": float(rec.bytes_accessed),
@@ -224,34 +238,48 @@ def probe_costs(cfg: ModelConfig, shape: ShapeConfig, mesh, multi_pod: bool,
     cost(P) = cost(1) + (P-1)·[cost(2) - cost(1)], the FLOPs and bytes
     scaled back for microbatching / probe sequence length (the reference's
     rule; exact where every period costs the same, as eager execution
-    counts each). The collectives are not scaled: the port gathers the
-    state and reduces the gradients once a step, whatever its microbatches
-    and sequence length."""
+    counts each). The collectives are not scaled on the gathered route:
+    it gathers the state and reduces the gradients once a step, whatever
+    its microbatches and sequence length. A train cell on the ``"tp"``
+    route also moves activations each microbatch: its probes run at one
+    and two microbatches, and the collectives are those of one plus
+    (n_micro - 1) times the difference."""
     n_micro = _microbatches(cfg, shape, mesh, profile) if shape.is_train else None
     pshape, scale = _probe_shape(shape, cfg, n_micro=n_micro)
 
-    def one(n_periods):
-        cell = lower_cell(_probe_cfg(cfg, n_periods), pshape, mesh, multi_pod,
-                          force_single_micro=True, profile=profile, compressed=compressed)
-        return _run_costs(cell, n_devices)
+    def one(n_periods, micro=1):
+        probe = dataclasses.replace(pshape, global_batch=pshape.global_batch * micro)
+        cell = lower_cell(_probe_cfg(cfg, n_periods), probe, mesh, multi_pod, profile=profile,
+                          compressed=compressed, n_micro=micro)
+        costs = _run_costs(cell, n_devices)
+        costs["route"] = cell.route
+        return costs
 
-    c1 = one(1)
-    c2 = one(2) if cfg.n_periods > 1 else c1
     p = cfg.n_periods
+    c1 = one(1)
+    c2 = one(2) if p > 1 else c1
+    colls = [c1["collective_kinds"], c2["collective_kinds"]]
+    if shape.is_train and n_micro > 1 and c1["route"] == "tp":
+        d1 = one(1, 2)["collective_kinds"]
+        d2 = one(2, 2)["collective_kinds"] if p > 1 else d1
+        colls = [{k: c[k] + (n_micro - 1) * max(d[k] - c[k], 0.0) for k in _KINDS}
+                 for c, d in ((colls[0], d1), (colls[1], d2))]
 
     def ext(a, b, scale=scale):
         return (a + (p - 1) * max(b - a, 0.0)) * scale
 
+    kinds = {k: ext(colls[0][k], colls[1][k], 1.0) for k in _KINDS}
     return {
         "flops": ext(c1["flops"], c2["flops"]),
         "bytes": ext(c1["bytes"], c2["bytes"]),
-        "collective_bytes": ext(c1["collective_bytes"], c2["collective_bytes"], 1.0),
-        "collective_kinds": {k: ext(c1["collective_kinds"][k], c2["collective_kinds"][k], 1.0)
-                             for k in ("all-reduce", "all-gather", "reduce-scatter",
-                                       "all-to-all", "collective-permute")},
+        "collective_bytes": sum(kinds.values()),
+        "collective_kinds": kinds,
         "probe": {"flops_1p": c1["flops"], "flops_2p": c2["flops"], "scale": scale,
                   "probe_seq": pshape.seq_len, "n_micro": n_micro},
     }
+
+
+_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")
 
 
 def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
@@ -324,12 +352,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
     else:
         costs = _run_costs(cell, n_dev)
     rec = analyse(cell.arg_bytes, cell.out_bytes, costs, cfg, shape, n_dev)
+    rec["route"] = cell.route
     rec["compile_s"] = round(dt, 1)
     rec["multi_pod"] = multi_pod
     if verbose:
         pd = rec["per_device"]
         print(f"== {arch} × {shape_name} ({'multi' if multi_pod else 'single'}-pod, "
-              f"{n_dev} ranks, profile {profile}) placed in {dt:.1f}s")
+              f"{n_dev} ranks, profile {profile}, route {cell.route}) placed in {dt:.1f}s")
         print(f"   per-device arguments: {pd['argument_bytes'] / 2**30:.3f} GiB "
               f"(H100: 80 GB)")
         print(f"   per-step per-device: flops={pd['hlo_flops']:.3e} "
@@ -341,7 +370,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
               f"memory={rec['roofline_s']['memory']:.4f} "
               f"collective={rec['roofline_s']['collective']:.4f} "
               f"→ {rec['bottleneck']}-bound; "
-              f"useful-FLOP ratio {rec['useful_flops_ratio']:.2f}")
+              f"useful-FLOP ratio {rec['useful_flops_ratio']:.3f}")
     return rec
 
 

@@ -4,9 +4,14 @@ The port of the reference's ``repro/launch/hlo_stats.py``. The reference
 parses XLA's optimized HLO text; the port has no compiler in between, so
 it records what a step dispatches: :class:`StepRecorder` is a dispatch
 mode that notes every functional collective (``_c10d_functional``: what
-DTensor's ``redistribute`` and ``full_tensor`` issue), each as (kind,
-result bytes on this rank, group size), every aten op by name, and the
-bytes each non-view op reads and writes. :func:`collective_stats` turns the
+DTensor's ``redistribute`` and ``full_tensor`` issue, and the
+redistributions DTensor makes inside an op of a tensor-parallel step),
+each as (kind, result bytes on this rank, group size) and, in ``shapes``,
+(kind, result shape, the group's ranks), every aten op by name, and the bytes
+each non-view op reads and writes. It lets DTensor's own dispatch run
+first, so it sees each rank's local ops and their local shapes (what the
+rank computes and moves), never a DTensor op's global shape;
+:class:`LocalFlopCounter` counts FLOPs the same way. :func:`collective_stats` turns the
 records into bytes moved per device under ring algorithms, by the
 reference's rules:
 
@@ -27,9 +32,11 @@ from __future__ import annotations
 import re
 from collections import Counter
 
+from torch.utils import flop_counter
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
 
-__all__ = ["StepRecorder", "collective_stats", "collective_stats_from_hlo",
+__all__ = ["LocalFlopCounter", "StepRecorder", "collective_stats", "collective_stats_from_hlo",
            "hlo_op_histogram"]
 
 _KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")
@@ -133,12 +140,19 @@ def hlo_op_histogram(ops, top: int = 15) -> list[tuple[str, int]]:
     return sorted(ops.items(), key=lambda kv: -kv[1])[:top]
 
 
-def _group_size_of(group) -> int:
+def _group_of(group):
     if isinstance(group, str):
         from torch.distributed.distributed_c10d import _resolve_process_group
 
         group = _resolve_process_group(group)
-    return group.size()
+    return group
+
+
+def _ranks(group) -> tuple:
+    """The group's global ranks."""
+    import torch.distributed as dist
+
+    return tuple(dist.get_process_group_ranks(group))
 
 
 def _tensor_bytes(tree) -> int:
@@ -149,32 +163,82 @@ def _tensor_bytes(tree) -> int:
                if isinstance(x, torch.Tensor))
 
 
+def _has_dtensor(types) -> bool:
+    """Whether an op is DTensor's to dispatch (its local ops come back)."""
+    from torch.distributed.tensor import DTensor
+
+    return any(issubclass(t, DTensor) for t in types)
+
+
+def _is_fake(types) -> bool:
+    """Whether an op is a shape inference that DTensor's sharding
+    propagation runs on fake tensors (global shapes, nothing computed on
+    the rank): run, not counted."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return any(issubclass(t, FakeTensor) for t in types)
+
+
 class StepRecorder(TorchDispatchMode):
     """What runs under it: ``collectives`` [(kind, result bytes, group
-    size)], ``ops`` (a Counter of aten op names) and ``bytes_accessed``
-    (the bytes of every non-view, non-collective op's tensor arguments and
-    results: what eager execution, which fuses nothing, reads and
-    writes)."""
+    size)], ``shapes`` [(kind, result shape, the group's global ranks)] of
+    the same
+    collectives, ``ops`` (a Counter of aten op names) and
+    ``bytes_accessed`` (the bytes of every non-view, non-collective op's
+    tensor arguments and results: what eager execution, which fuses
+    nothing, reads and writes). A DTensor op is passed to DTensor's
+    dispatch, whose local ops and collectives come back here."""
 
     def __init__(self):
         super().__init__()
         self.collectives: list[tuple[str, float, int]] = []
+        self.shapes: list[tuple[str, tuple, tuple]] = []
         self.ops: Counter = Counter()
         self.bytes_accessed = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _has_dtensor(types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if _is_fake(types):
+            return out
         packet = func.overloadpacket
         namespace, name = packet._qualified_op_name.split("::")
         if namespace == "_c10d_functional":
             kind = _FUNCOL_KINDS.get(name)
             if kind is not None:
-                group = kwargs.get("group_name", args[-1])
-                self.collectives.append((kind, float(_tensor_bytes(out)),
-                                         _group_size_of(group)))
+                group = _group_of(kwargs.get("group_name", args[-1]))
+                self.collectives.append((kind, float(_tensor_bytes(out)), group.size()))
+                self.shapes.append((kind, tuple(getattr(out, "shape", ())), _ranks(group)))
             return out
         self.ops[str(packet)] += 1
         if not func.is_view:
             self.bytes_accessed += _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
         return out
+
+
+class _LocalMode(flop_counter._FlopCounterMode):
+    """``FlopCounterMode``'s dispatch mode, counting only a rank's own
+    ops (see :class:`LocalFlopCounter`)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _has_dtensor(types):
+            return NotImplemented
+        if _is_fake(types):
+            return func(*args, **(kwargs or {}))
+        return super().__torch_dispatch__(func, types, args, kwargs)
+
+
+class LocalFlopCounter(FlopCounterMode):
+    """``FlopCounterMode`` that counts each rank's local ops: a DTensor op
+    is passed to DTensor's dispatch (whose local ops come back here)
+    instead of being counted at its global shape, and the fake-tensor
+    shape inference of DTensor's sharding propagation is not counted."""
+
+    def __enter__(self):
+        self.flop_counts.clear()
+        self.mod_tracker.__enter__()
+        self.mode = _LocalMode(self)
+        self.mode.__enter__()
+        return self

@@ -11,15 +11,25 @@ indices, keyed as the reference keys ``jax.tree_util`` paths.
 :func:`sharded` is the counterpart of ``jax.jit(step, in_shardings,
 out_shardings)``. PyTorch has no GSPMD to partition an unchanged step, so
 the wrapper keeps the state at rest as DTensors placed by the spec trees
-and computes on local tensors: each rank takes its rows of the batch over
-the data-parallel axes (the ``tokens`` rule's), gathers every other input
-whole, runs the unchanged step, and places the outputs back. The
-gradients are summed over the data-parallel ranks inside the step
-(``sharding.data_parallel_sum`` in ``make_train_step``), so every rank
-updates the same parameters. That is FSDP / ZeRO-3 data parallelism, the
-reference's ``profile="dp"``. Under ``"tp"`` the tensors sharded over
-``model`` are stored sharded and gathered for compute: correct, and no
-faster; tensor-parallel compute over ``model`` is not ported.
+and hands the step each rank's part: its rows of the batch over the
+data-parallel axes (the ``tokens`` rule's), and the other inputs gathered
+over the data-parallel axes (FSDP). What it does over ``model`` is the
+step's *route* (:func:`compute_route`):
+
+* ``"tp"``, a model of dense blocks under a rule table that shards over
+  a ``model`` axis of more than one rank: the inputs keep their ``model`` shards, as DTensors over the
+  ``model`` submesh, and the model code splits each layer's compute over
+  the axis at the reference's sharding constraints (``sh.constrain``,
+  ``sh.einsum``, ``sh.local_seam``), as GSPMD does at them;
+* ``"gathered"``, every other step (the ``"dp"`` rules, a ``model`` axis
+  of one rank, the recurrent and MoE blocks, the compressed parameters,
+  a step named no config): every input is gathered whole
+  and the step runs on local tensors, so the ranks of a ``model`` group
+  repeat each other's compute.
+
+Either way the gradients are summed over the data-parallel ranks inside
+the step (``sharding.data_parallel_sum`` in ``make_train_step``), so every
+rank updates the same parameters.
 """
 
 from __future__ import annotations
@@ -28,9 +38,9 @@ from ..distributed import sharding as sh
 from ..distributed.sharding import P
 from ..tree import tree_leaves, tree_map
 
-__all__ = ["batch_specs_tree", "cache_specs_tree", "compressed_param_specs_tree",
-           "fit_spec", "local_bytes", "named", "opt_specs_tree", "param_specs_tree",
-           "per_batch", "place", "sharded"]
+__all__ = ["TP_MIX_BLOCKS", "TP_SEQ_BLOCKS", "batch_specs_tree", "cache_specs_tree",
+           "compressed_param_specs_tree", "compute_route", "fit_spec", "local_bytes", "named",
+           "opt_specs_tree", "param_specs_tree", "per_batch", "place", "sharded"]
 
 
 def _key_str(entry) -> str:
@@ -299,82 +309,158 @@ class per_batch:
         self.specs = specs
 
 
-def sharded(step, in_specs: tuple, out_specs: tuple, ctx: sh.ShardingCtx):
+# The blocks whose compute the model code splits over ``model`` (the
+# reference's sharding constraints are ported for them). A model with any
+# other block (the RG-LRU and RWKV-6 mixes, the routed experts) keeps the
+# gathered route.
+TP_SEQ_BLOCKS = frozenset({"attn", "local_attn"})
+TP_MIX_BLOCKS = frozenset({"swiglu", "gelu"})
+
+
+def compute_route(ctx: sh.ShardingCtx, cfg, route: str | None = None) -> str:
+    """The route a step of ``cfg`` takes under ``ctx`` (:func:`sharded`).
+
+    By default ``"tp"`` where the table shards over a ``model`` axis of
+    more than one rank and every block of the config is dense, else
+    ``"gathered"`` (also for a step that names no config): on a ``model``
+    axis of one rank the split has nothing to split and costs DTensor's
+    dispatch. ``route`` asks for a route instead: ``"gathered"`` always,
+    ``"tp"`` wherever the default would split but for the axis' size (a
+    one-rank check of the split route); anything else raises.
+    """
+    sizes = sh.mesh_axis_sizes(ctx.mesh)
+    splits = (cfg is not None and ctx.profile == "tp" and "model" in sizes
+              and (set(cfg.period) | set(cfg.tail)) <= TP_SEQ_BLOCKS
+              and (set(cfg.mix) | set(cfg.tail_mix)) <= TP_MIX_BLOCKS)
+    if route is None:
+        return "tp" if splits and sizes["model"] > 1 else "gathered"
+    if route == "gathered" or (route == "tp" and splits):
+        return route
+    raise ValueError(f"route {route!r} is not open to {getattr(cfg, 'name', cfg)} under the "
+                     f"{ctx.profile!r} table on a mesh of {sizes}")
+
+
+def sharded(step, in_specs: tuple, out_specs: tuple, ctx: sh.ShardingCtx, *, cfg=None,
+            route: str | None = None):
     """``step`` over the DTensor state placed by spec trees on ``ctx.mesh``.
 
-    ``in_specs`` has one entry an argument: a spec tree (the argument is
-    gathered whole), ``per_batch(spec tree)`` (the step sees this rank's
-    rows) or None (passed as it is). Plain tensors are placed first, as
-    ``jit`` places host arrays. ``out_specs`` has one entry an output: a
-    spec tree (the result is whole and the same on every rank, and is
-    placed by keeping each rank's part), ``per_batch(...)`` as above, or
-    None (returned as it is). The data-parallel axes are the ``tokens``
+    ``in_specs`` has one entry an argument: a spec tree (the step sees the
+    argument gathered over the data-parallel axes), ``per_batch(spec
+    tree)`` (the step sees this rank's rows) or None (passed as it is).
+    Plain tensors are placed first, as ``jit`` places host arrays.
+    ``out_specs`` has one entry an output: a spec tree (the result is the
+    same on every data-parallel rank, and is placed by keeping each rank's
+    part), ``per_batch(...)`` as above, or None (returned as it is, a
+    DTensor gathered whole). The data-parallel axes are the ``tokens``
     rule's, less any that a batch input is not split over (a batch that
     does not divide over an axis is replicated over it by ``fit_spec``).
-    Inside the step, ``sharding.data_parallel_sum`` sums over them. The
-    inputs are not donated; a batch input already placed as its rows (for
-    example a cache placed by a ``"dp"`` rule table) is the same storage
-    the step sees, so a step that updates it in place updates the input.
+    Inside the step, ``sharding.data_parallel_sum`` sums over them.
+
+    The route (:func:`compute_route` of ``cfg``, the step's config, and
+    ``route``) decides the ``model`` axis: on ``"tp"`` the step sees each
+    input's ``model`` shard as a DTensor over the ``model`` submesh, runs
+    under ``ctx``'s table and returns DTensors there; on ``"gathered"`` it
+    sees whole local tensors. The inputs are
+    not donated; a batch input already placed as the step sees it (a cache
+    placed by the rules) is the same storage the step sees, so a step that
+    updates it in place updates the input. ``call.route`` names the route.
     """
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     mesh = ctx.mesh
     names = list(mesh.mesh_dim_names)
     dp_dims = tuple(names.index(a) for a in sh._axes(ctx.spec("tokens")[0]))
+    route = compute_route(ctx, cfg, route)
+    tp_dims = (names.index("model"),) if route == "tp" else ()
+    sub = mesh["model"] if tp_dims else None
 
-    def rows_placements(target, split):
-        return [target[i] if i in split else Replicate() for i in range(mesh.ndim)]
+    def seen(target, split):
+        """The placements of what the step sees of a leaf placed at
+        ``target``: its rows over ``split``, its ``model`` shard on the
+        ``"tp"`` route, whole over every other mesh dim."""
+        return [target[i] if i in split or i in tp_dims else Replicate()
+                for i in range(mesh.ndim)]
+
+    def to_step(x, split):
+        local = x.redistribute(mesh, seen(x.placements, split))
+        if not tp_dims:
+            return local.to_local()
+        return DTensor.from_local(local.to_local(), sub, [local.placements[i] for i in tp_dims],
+                                  run_check=False)
+
+    def from_step(x, split, target=None):
+        """An output leaf over the whole mesh, as the step left it: its
+        rows over ``split`` (on ``target``'s dims, dim 0 without one), its
+        ``model`` placement kept on ``"tp"``."""
+        kept = {}
+        if isinstance(x, DTensor):
+            kept = dict(zip(tp_dims, x.placements))
+            x = x.to_local()
+        rows = [kept.get(i, (target[i] if target else Shard(0)) if i in split else Replicate())
+                for i in range(mesh.ndim)]
+        return DTensor.from_local(x, mesh, rows, run_check=False)
+
+    def whole(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
 
     def call(*args):
         if len(args) != len(in_specs):
             raise TypeError(f"the step takes {len(in_specs)} arguments, got {len(args)}")
         split = None
-        local = []
+        placed_in = []
         for arg, spec in zip(args, in_specs):
             if spec is None:
-                local.append(arg)
+                placed_in.append((arg, None))
                 continue
             rows = isinstance(spec, per_batch)
             placed = place(arg, spec.specs if rows else spec, mesh)
-            if not rows:
-                local.append(tree_map(lambda x: x.full_tensor(), placed))
-                continue
-            for x in tree_leaves(placed):
-                mine = tuple(i for i in dp_dims if x.placements[i].is_shard())
-                if split is not None and mine != split:
-                    raise ValueError("the batch inputs are split over different data-parallel "
-                                     f"axes: {split} and {mine}")
-                split = mine
-            local.append(tree_map(
-                lambda x: x.redistribute(mesh, rows_placements(x.placements, split)).to_local(),
-                placed))
+            if rows:
+                for x in tree_leaves(placed):
+                    mine = tuple(i for i in dp_dims if x.placements[i].is_shard())
+                    if split is not None and mine != split:
+                        raise ValueError("the batch inputs are split over different "
+                                         f"data-parallel axes: {split} and {mine}")
+                    split = mine
+            placed_in.append((placed, rows))
         split = split or ()
-        with sh.data_parallel(mesh, split):
+        local = []
+        for placed, rows in placed_in:
+            if rows is None:
+                local.append(placed)
+            elif not rows and not tp_dims:
+                local.append(tree_map(lambda x: x.full_tensor(), placed))
+            else:
+                local.append(tree_map(lambda x, r=rows: to_step(x, split if r else ()), placed))
+        with sh.activate(ctx), sh.data_parallel(mesh, split), sh.tensor_parallel(sub):
             out = step(*local)
         outs = out if isinstance(out, tuple) else (out,)
         if len(outs) != len(out_specs):
             raise TypeError(f"the step returned {len(outs)} outputs for {len(out_specs)} specs")
-        rows_of_dim0 = [Shard(0) if i in split else Replicate() for i in range(mesh.ndim)]
         placed_out = []
         for o, spec in zip(outs, out_specs):
             if spec is None:
-                placed_out.append(o)
+                placed_out.append(tree_map(whole, o))
             elif isinstance(spec, per_batch) and spec.specs is None:
                 placed_out.append(tree_map(
-                    lambda x: DTensor.from_local(x, mesh, rows_of_dim0,
-                                                 run_check=False).full_tensor(), o))
+                    lambda x: from_step(whole(x), split).full_tensor(), o))
             elif isinstance(spec, per_batch):
                 def back(x, s):
                     target = sh.placements(s, mesh)
-                    rows = rows_placements(target, split)
-                    if any(not rows[i].is_shard() for i in split):
+                    if any(not target[i].is_shard() for i in split):
                         raise ValueError(f"output spec {s} does not split the batch over the "
                                          "data-parallel axes its inputs were split over")
-                    return DTensor.from_local(x, mesh, rows, run_check=False).redistribute(
-                        mesh, target)
+                    return _to(from_step(x, split, target), target, mesh)
                 placed_out.append(tree_map(back, o, spec.specs))
+            elif tp_dims:
+                placed_out.append(tree_map(
+                    lambda x, s: _to(from_step(x, ()), sh.placements(s, mesh), mesh), o, spec))
             else:
                 placed_out.append(place(o, spec, mesh))
         return tuple(placed_out) if isinstance(out, tuple) else placed_out[0]
 
+    call.route = route
     return call
+
+
+def _to(x, target, mesh):
+    return x if tuple(x.placements) == tuple(target) else x.redistribute(mesh, target)

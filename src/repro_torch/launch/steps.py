@@ -7,10 +7,14 @@ returning last-position logits, ``make_serve_step`` one greedy decode token
 against the cache and ``make_eval_step`` the loss. ``jax.jit`` and
 ``lax.scan`` have no counterpart: each step runs eagerly, the microbatches
 in a Python loop, and the prefill, serve and eval steps under
-``torch.inference_mode()``.
+``torch.inference_mode()`` (``torch.no_grad()`` in a tensor-parallel
+step: a view of a DTensor made outside inference mode cannot be taken
+inside it).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -57,7 +61,8 @@ def make_train_step(cfg: ModelConfig, n_microbatches: int = 1, *,
             loss = loss_fn(diff, batch, cfg)[0]
             leaves = tree_leaves(diff)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        grads = [torch.zeros_like(p) if g is None else _placed_like(g, p)
+                 for p, g in zip(leaves, grads)]
         it = iter(grads)
         return loss.detach(), tree_map(lambda _: next(it), params)
 
@@ -71,8 +76,7 @@ def make_train_step(cfg: ModelConfig, n_microbatches: int = 1, *,
                                  "equal microbatches")
             parts = {k: v.reshape((n_microbatches, size // n_microbatches) + v.shape[1:])
                      for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype, device=p.device),
-                             params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=acc_dtype), params)
             loss = 0.0
             for i in range(n_microbatches):
                 part_loss, part = value_and_grad(params, {k: v[i] for k, v in parts.items()})
@@ -91,15 +95,36 @@ def make_train_step(cfg: ModelConfig, n_microbatches: int = 1, *,
     return train_step
 
 
+def _placed_like(grad, param):
+    """A parameter's gradient laid out as the parameter is. In a
+    tensor-parallel step a replicated weight met by split activations (a
+    norm's scale on the sequence-split residual) has a partial gradient
+    over ``model``: it is summed here, once a microbatch. A sharded
+    weight's gradient keeps its shard."""
+    if not hasattr(param, "placements") or tuple(grad.placements) == tuple(param.placements):
+        return grad
+    return grad.redistribute(param.device_mesh, param.placements)
+
+
+def _inference(fn):
+    """``fn`` under ``torch.inference_mode()``, or ``torch.no_grad()``
+    inside a tensor-parallel step."""
+    @functools.wraps(fn)
+    def run(*args):
+        with torch.inference_mode() if sh.compute_mesh() is None else torch.no_grad():
+            return fn(*args)
+    return run
+
+
 def make_eval_step(cfg: ModelConfig):
-    @torch.inference_mode()
+    @_inference
     def eval_step(params, batch):
         return loss_fn(params, batch, cfg)[0]
     return eval_step
 
 
 def make_prefill_step(cfg: ModelConfig):
-    @torch.inference_mode()
+    @_inference
     def prefill_step(params, batch):
         logits = forward(params, batch, cfg)
         return logits[:, -1, :].to(torch.float32)  # (B, V)
@@ -109,10 +134,11 @@ def make_prefill_step(cfg: ModelConfig):
 def make_serve_step(cfg: ModelConfig):
     """One greedy decode token for the whole batch."""
 
-    @torch.inference_mode()
+    @_inference
     def serve_step(params, cache, batch, pos):
         logits, new_cache = decode_step(params, cache, batch, pos, cfg)
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        # Vocabulary-split logits gathered (B × V) for the argmax.
+        next_tok = torch.argmax(sh.unsplit(logits[:, -1, :], 1), dim=-1).to(torch.int32)
         return next_tok, new_cache
 
     return serve_step

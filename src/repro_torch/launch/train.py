@@ -115,7 +115,9 @@ def restore_sharded(mgr: CheckpointManager, mesh, ctx, step=None):
     mesh's rules (any topology). Returns (step, params as DTensors), or
     (None, None) when the store holds no checkpoint. Only the parameters
     are read from the store, as the reference returns only them; every
-    rank restores the same tensors and keeps its own part of each."""
+    rank restores the same tensors and keeps its own part of each. The
+    placed parameters go to a step of ``launch.shardings.sharded`` as they
+    are: on the ``"tp"`` route each rank keeps its ``model`` shards."""
     from . import shardings as shd
 
     step, state = mgr.restore(step, params_only=True)

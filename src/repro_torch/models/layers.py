@@ -12,13 +12,21 @@ On the card, :func:`chunked_attention` is the hand-written CUDA kernel
 autograd function gives its gradient; on the CPU it is a plain port of the
 reference's chunked scan, which autograd differentiates as XLA does the
 reference's; on the ``meta`` device (``launch/dryrun.py``) the same scan
-gives shapes and operation counts. The reference's sharding constraints
-(``sh.constrain`` between layers) are not called here: on a mesh the port
-computes each layer on local tensors, gathered by
-``launch.shardings.sharded`` (data parallelism; ``distributed.sharding``
-holds the rules and a ``constrain`` that redistributes DTensors, which no
-layer calls, since tensor-parallel compute over ``model`` is not ported).
-``MoE``'s routing and expert products are plain PyTorch, as the
+gives shapes and operation counts.
+
+The reference's sharding constraints are called where it calls them
+(``sh.constrain`` on ``"heads"``, ``"kv_heads"``, ``"ffn"`` and
+``"residual"``), with its names: outside a tensor-parallel step they do
+nothing. Inside one (``launch.shardings.sharded`` on the ``"tp"`` route)
+the activations and weights are DTensors over ``model``, the products
+run through ``sh.einsum`` on each rank's shards, and the attention runs
+behind a ``local_map`` seam on each rank's heads (the same kernel on the
+card). Two constraints the reference leaves to GSPMD are explicit: the
+sequence-sharded residual is gathered (``"residual_gathered"``) before
+the column-parallel products, and the attention's output is laid out as
+``wo`` is (``"heads"``) before the row-parallel one. The recurrent blocks
+and ``MoE`` are not split over ``model`` (their models take the gathered
+route); ``MoE``'s routing and expert products are plain PyTorch, as the
 reference's are plain ``jnp`` outside any Pallas kernel.
 """
 
@@ -31,6 +39,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..distributed import sharding as sh
 from ..kernels import ops
 
 Params = dict[str, Any]
@@ -56,7 +65,30 @@ def rope_freqs(d_head: int, theta: float, device=None):
 
 
 def apply_rope(x, positions, theta: float):
-    """x: (..., S, H, dh); positions: (..., S). Split-half rotation."""
+    """x: (..., S, H, dh); positions: (..., S). Split-half rotation. A
+    DTensor ``x`` (whole heads: :func:`whole_heads`) is rotated on each
+    rank's heads, its placement kept."""
+    if not sh.compute_mesh() or not hasattr(x, "placements"):
+        return _rope(x, positions, theta)
+    return sh.local_seam(_rope, tuple(x.placements), [tuple(x.placements), None, None])(
+        x, positions, theta)
+
+
+def whole_heads(x, n_heads: int):
+    """A (B, S, H, dh) DTensor with whole heads: split over heads where a
+    rule shards ``d_head`` (the decode rules) and the heads divide the
+    axis, else replicated; anything else as it is."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if not hasattr(x, "placements") or not any(p.is_shard(3) for p in x.placements):
+        return x
+    sizes = tuple(x.device_mesh.shape)
+    target = tuple((Shard(2) if n_heads % n == 0 else Replicate()) if p.is_shard(3) else p
+                   for p, n in zip(x.placements, sizes))
+    return x.redistribute(x.device_mesh, target)
+
+
+def _rope(x, positions, theta: float):
     d_head = x.shape[-1]
     freqs = rope_freqs(d_head, theta, x.device)               # (dh/2,)
     angles = positions[..., None].to(torch.float32) * freqs  # (..., S, dh/2)
@@ -150,9 +182,13 @@ class AttentionBlock:
         return p
 
     def _qkv(self, p, x, positions):
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-        k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-        v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+        # The sequence-sharded residual gathered for the column-parallel
+        # products; q and k with whole heads for the norm and RoPE.
+        x = sh.constrain(x, "residual_gathered")
+        q = sh.constrain(sh.einsum("bsd,dhk->bshk", x, p["wq"]), "heads")
+        k = sh.constrain(sh.einsum("bsd,dhk->bshk", x, p["wk"]), "kv_heads")
+        v = sh.constrain(sh.einsum("bsd,dhk->bshk", x, p["wv"]), "kv_heads")
+        q, k = whole_heads(q, self.n_heads), whole_heads(k, self.n_kv_heads)
         if self.qk_norm:
             q = rms_norm(q, p["q_norm"], self.norm_eps)
             k = rms_norm(k, p["k_norm"], self.norm_eps)
@@ -163,9 +199,47 @@ class AttentionBlock:
     def forward(self, p, x, positions):
         """x: (B, S, D) → (B, S, D); full sequence (prefill / evaluation)."""
         q, k, v = self._qkv(p, x, positions)
-        o = chunked_attention(q, k, v, causal=self.causal, window=self.window,
-                              chunk=self.chunk)
-        return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+        o = self._attend(q, k, v)
+        o = sh.constrain(o, "heads")
+        out = sh.einsum("bshk,hkd->bsd", o, p["wo"])
+        return sh.constrain(out, "residual")
+
+    def _attend(self, q, k, v):
+        """:func:`chunked_attention` (the kernel on the card). On DTensors,
+        the seam: each rank attends with its own heads. Q is split over
+        heads where they divide the axis; K and V are split with it where
+        the KV heads divide too, else they are whole on every rank, which
+        then takes the KV heads of its own query heads (one KV head when
+        its query heads share one, else one a query head), so that the
+        kernel's group map (local query head j on KV head j // G) holds."""
+        kw = dict(causal=self.causal, window=self.window, chunk=self.chunk)
+        if not hasattr(q, "placements"):
+            return chunked_attention(q, k, v, **kw)
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        m = sh.compute_mesh().size()
+        h, kv = self.n_heads, self.n_kv_heads
+        g = h // kv
+        q_split = h % m == 0
+        kv_split = q_split and kv % m == 0
+        hq = h // m if q_split else h
+        first = sh.model_rank() * hq if q_split else 0
+        if kv_split or not q_split:
+            pick = None
+        elif g % hq == 0:
+            pick = slice(first // g, first // g + 1)
+        else:
+            pick = [(first + j) // g for j in range(hq)]
+
+        def local(q, k, v):
+            if pick is not None:
+                k, v = k[:, :, pick], v[:, :, pick]
+            return chunked_attention(q, k, v, **kw)
+
+        qp = (Shard(2),) if q_split else (Replicate(),)
+        kvp = (Shard(2),) if kv_split else (Replicate(),)
+        kvg = (Partial(),) if pick is not None else kvp
+        return sh.local_seam(local, qp, [qp, kvp, kvp], [qp, kvg, kvg])(q, k, v)
 
     # ------------------------------------------------------------- decode
     def init_cache(self, batch, max_len, dtype, device, lead=()):
@@ -183,6 +257,13 @@ class AttentionBlock:
         Unlike the reference, which returns a new cache, the new K/V row is
         written into ``cache`` in place (the returned dict is ``cache``): a
         full copy of the cache per token is what the in-place write saves.
+        On DTensors the cache stays as the rules place it
+        (``sh.cache_logical``: KV heads, sequence or ``d_head`` over
+        ``model``); each rank writes the row into its own shard and
+        attends with the query laid out as the cache is: the scores over
+        a ``d_head`` split are partial sums, reduced; over a sequence
+        split they are gathered for the softmax, and the weighted values
+        are partial sums.
         """
         pos = int(pos)
         positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
@@ -190,13 +271,14 @@ class AttentionBlock:
         ck, cv = cache["k"], cache["v"]
         length = ck.shape[2]
         slot = (pos % length) if self.window else pos
-        ck[:, :, slot] = k[:, 0]                            # (B, KV, dh)
-        cv[:, :, slot] = v[:, 0]
+        _write_row(ck, k[:, 0], slot)                       # (B, KV, dh)
+        _write_row(cv, v[:, 0], slot)
         kv, g = self.n_kv_heads, self.n_heads // self.n_kv_heads
         b = q.shape[0]
+        q = _like_cache(q, ck)
         qg = q.reshape(b, 1, kv, g, self.d_head)[:, 0]      # (B, KV, G, dh)
         scale = 1.0 / (self.d_head ** 0.5)
-        s = torch.einsum("bkgd,bksd->bkgs", qg, ck).to(torch.float32) * scale
+        s = sh.unsplit(sh.einsum("bkgd,bksd->bkgs", qg, ck), 3).to(torch.float32) * scale
         k_idx = torch.arange(length, device=x.device)
         if self.window:
             # Ring buffer: entry j holds absolute position
@@ -204,12 +286,50 @@ class AttentionBlock:
             valid = (pos - torch.remainder(slot - k_idx, length)) >= 0
         else:
             valid = k_idx <= pos
-        s = torch.where(valid, s, -1e30)
+        s = torch.where(sh.replicated(valid), s, -1e30)
         w = torch.softmax(s, dim=-1).to(cv.dtype)
-        o = torch.einsum("bkgs,bksd->bkgd", w, cv)
-        o = o.reshape(b, 1, self.n_heads, self.d_head)
-        out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
-        return out, cache
+        o = sh.unsplit(sh.einsum("bkgs,bksd->bkgd", w, cv))
+        o = sh.constrain(o.reshape(b, 1, self.n_heads, self.d_head), "heads")
+        out = sh.einsum("bshk,hkd->bsd", o, p["wo"])
+        return sh.constrain(out, "residual"), cache
+
+
+def _write_row(cache, row, slot: int) -> None:
+    """``cache[:, :, slot] = row`` (cache (B, KV, L, dh), row (B, KV, dh)),
+    in place. On a DTensor cache each rank writes its own shard's part of
+    the row, laid out as the shard is; over a sequence split only the rank
+    holding ``slot`` writes. No rank gathers the cache."""
+    if not hasattr(cache, "placements"):
+        cache[:, :, slot] = row
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    local = cache.to_local()
+    mesh = cache.device_mesh
+    target, at = [], slot
+    for axis, place in enumerate(cache.placements):
+        if place.is_shard(2):
+            n = local.shape[2]
+            if mesh.get_local_rank(axis) != at // n:
+                return
+            at %= n
+            target.append(Replicate())
+        else:
+            target.append(Shard(place.dim - (place.dim > 2)) if place.is_shard() else Replicate())
+    local[:, :, at] = sh.replicated(row).redistribute(mesh, target).to_local()
+
+
+def _like_cache(q, cache):
+    """The (B, 1, H, dh) query of a decode step laid out as ``cache``
+    (B, KV, L, dh) is over the compute mesh: its heads split with the
+    cache's KV heads, its ``d_head`` with the cache's, else whole."""
+    if not hasattr(q, "placements"):
+        return q
+    from torch.distributed.tensor import Replicate, Shard
+
+    target = tuple(Shard(2) if p.is_shard(1) else Shard(3) if p.is_shard(3) else Replicate()
+                   for p in cache.placements)
+    return q if tuple(q.placements) == target else q.redistribute(q.device_mesh, target)
 
 
 # ---------------------------------------------------------------------- MLPs
@@ -227,8 +347,11 @@ class SwiGLU:
         }
 
     def forward(self, p, x):
-        h = F.silu(x @ p["wg"]) * (x @ p["wu"])
-        return h @ p["wd"]
+        x = sh.constrain(x, "residual_gathered")
+        h = (F.silu(sh.einsum("bsd,df->bsf", x, p["wg"], local=torch.matmul))
+             * sh.einsum("bsd,df->bsf", x, p["wu"], local=torch.matmul))
+        h = sh.constrain(h, "ffn")
+        return sh.constrain(sh.einsum("bsf,fd->bsd", h, p["wd"], local=torch.matmul), "residual")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,7 +367,10 @@ class GeluMLP:
 
     def forward(self, p, x):
         # jax.nn.gelu defaults to the tanh approximation.
-        return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
+        x = sh.constrain(x, "residual_gathered")
+        h = F.gelu(sh.constrain(sh.einsum("bsd,df->bsf", x, p["w1"], local=torch.matmul), "ffn"),
+                   approximate="tanh")
+        return sh.constrain(sh.einsum("bsf,fd->bsd", h, p["w2"], local=torch.matmul), "residual")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,16 +20,30 @@ residual add. The recurrent blocks carry their decode state in the cache
 beside the attention layers' K/V (``h`` and ``conv``; ``wkv`` and
 ``shift_tm``; the channel mix's ``shift_cm``), stacked over periods in
 the same way; ``decode_step`` updates every layer's cache in place.
+
+The reference's sharding constraints stand where it puts them
+(``sh.constrain``: the pre-norm outputs and the residual on
+``"residual"``, the tokens, the embedding and the logits); they do nothing
+outside a tensor-parallel step (``launch.shardings.sharded``'s ``"tp"``
+route). Inside one the embedding table and the LM head are split over the
+vocabulary: each rank looks up its own rows (a partial sum, reduced into
+the residual's layout) and computes its own logits, and ``loss_fn``'s
+cross entropy reduces the row max, the sum of exponentials and the gold
+logit over the vocabulary shards without gathering the (B, S, V)
+logits.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import contextlib
+
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import sharding as sh
 from ..kernels.ops import resolve_device
 from .config import ModelConfig
 from .layers import AttentionBlock, GeluMLP, MoE, SwiGLU, _normal, rms_norm
@@ -195,30 +209,65 @@ def _apply_layer(cfg, seq_blk, mix_blk, p, x, positions):
     """Pre-LN residual block. The recurrent blocks' and the RWKV channel
     mix's final states are dropped: a forward starts every layer from zero
     state, as the reference's does."""
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    h = sh.constrain(rms_norm(x, p["norm1"], cfg.norm_eps), "residual")
     if isinstance(seq_blk, AttentionBlock):
         a = seq_blk.forward(p["seq"], h, positions)
     else:
         a, _ = seq_blk.forward(p["seq"], h)
     x = x + a
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    h = sh.constrain(rms_norm(x, p["norm2"], cfg.norm_eps), "residual")
     if isinstance(mix_blk, RWKV6ChannelMix):
         m, _ = mix_blk.forward(p["mix"], h)
     else:
         m = mix_blk.forward(p["mix"], h)
-    return x + m
+    return sh.constrain(x + m, "residual")
+
+
+def _lookup(table, tokens):
+    """``table[tokens]``. Over a vocabulary-split table (a DTensor in a
+    tensor-parallel step) each rank looks up the tokens in its rows and
+    gives zeros for the rest: a partial sum with one term a token, which
+    the caller's constraint reduces (DTensor's masked embedding)."""
+    if not hasattr(table, "placements"):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    place = table.placements[0]
+    if not place.is_shard(0):
+        out = Shard(place.dim + tokens.ndim - 1) if place.is_shard() else Replicate()
+        return sh.local_seam(lambda t, i: t[i], (out,), [tuple(table.placements),
+                                                          "tokens"])(table, tokens)
+    rows = table.shape[0] // sh.compute_mesh().size()
+    first = sh.model_rank() * rows
+
+    def local(t, ids):
+        ids = ids - first
+        inside = (ids >= 0) & (ids < rows)
+        got = t[torch.where(inside, ids, 0)]
+        return torch.where(inside[..., None], got, got.new_zeros(()))
+
+    return sh.local_seam(local, (Partial(),), [(Shard(0),), "tokens"])(table, tokens)
 
 
 def _embed_in(cfg: ModelConfig, params, batch):
     # Stub frontends (audio / vlm) feed precomputed embeddings; VLM decode
     # still feeds text tokens — dispatch on the batch key.
     if "embeds" in batch:
-        return batch["embeds"].to(_dtype(cfg.compute_dtype))
-    return params["embed"][batch["tokens"]].to(_dtype(cfg.compute_dtype))
+        return sh.constrain(batch["embeds"].to(_dtype(cfg.compute_dtype)), "embeds_in")
+    tokens = sh.constrain(batch["tokens"], "tokens")
+    x = _lookup(params["embed"], tokens)
+    return sh.constrain(x.to(_dtype(cfg.compute_dtype)), "residual")
 
 
 def _head(cfg, params):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _logits(cfg, params, x):
+    """The LM head on the final norm's output: the residual gathered over
+    its sequence split, the logits split over the vocabulary."""
+    x = sh.constrain(rms_norm(x, params["final_norm"], cfg.norm_eps), "residual_gathered")
+    return sh.constrain(sh.einsum("bsd,dv->bsv", x, _head(cfg, params)), "logits")
 
 
 def forward(params: Params, batch: dict, cfg: ModelConfig):
@@ -231,6 +280,7 @@ def forward(params: Params, batch: dict, cfg: ModelConfig):
     """
     x = _embed_in(cfg, params, batch)
     b, s, _ = x.shape
+    # Local on every rank (the RoPE seam takes them as they are).
     positions = torch.arange(s, device=x.device).expand(b, s)
     period_blocks = _blocks_for_period(cfg)
 
@@ -240,16 +290,19 @@ def forward(params: Params, batch: dict, cfg: ModelConfig):
         return x
 
     remat = cfg.remat and torch.is_grad_enabled()
+    # The recompute may run on the autograd engine's thread (on the card):
+    # it runs under the step's sharding state.
+    state = sh.snapshot()
+    in_step = lambda: (contextlib.nullcontext(), sh.resume(state))  # noqa: E731
     for i in range(cfg.n_periods):
         p_period = _index(params["periods"], i)
         if remat:
-            x = checkpoint(period_fn, x, p_period, use_reentrant=False)
+            x = checkpoint(period_fn, x, p_period, use_reentrant=False, context_fn=in_step)
         else:
             x = period_fn(x, p_period)
     for i, (sb, mb) in enumerate(_blocks_for_tail(cfg)):
         x = _apply_layer(cfg, sb, mb, params["tail"][i], x, positions)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return torch.einsum("bsd,dv->bsv", x, _head(cfg, params))
+    return _logits(cfg, params, x)
 
 
 def loss_fn(params: Params, batch: dict, cfg: ModelConfig):
@@ -259,18 +312,53 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig):
     logits = forward(params, batch, cfg).to(torch.float32)
     labels = batch["labels"].to(torch.int64)
     mask = batch.get("mask")
-    m = logits.amax(dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
-    gold = logits.gather(-1, labels[..., None])[..., 0]
-    nll = lse - gold
+    nll = _nll(logits, labels)
     if mask is None:
         loss = nll.mean()
         denom = nll.numel()
     else:
-        mask = mask.to(torch.float32)
+        mask = sh.replicated(mask.to(torch.float32))
         loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
         denom = mask.sum()
     return loss, {"loss": loss, "tokens": denom}
+
+
+def _nll(logits, labels):
+    """``logsumexp(logits) - logits[label]`` a position (the row max held
+    out of the gradient). Over vocabulary-split logits (a DTensor) each
+    rank reduces its own columns and the three reductions cross the ranks
+    as tensors of (B, S): the row max (an all-reduce of the maxima), the
+    sum of exponentials and the gold logit (all-reduces of partial sums,
+    the gold logit being zero on every rank but its column's)."""
+    if not hasattr(logits, "placements"):
+        m = logits.amax(dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+        return lse - logits.gather(-1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate
+
+    last = logits.ndim - 1
+    if not any(p.is_shard(last) for p in logits.placements):
+        logits = sh.unsplit(logits, *range(logits.ndim))
+        return sh.local_seam(_nll, (Replicate(),), [(Replicate(),), (Replicate(),)])(
+            logits, labels)
+    logits = sh.unsplit(logits, *range(last))
+    cols = logits.shape[-1] // sh.compute_mesh().size()
+    first = sh.model_rank() * cols
+
+    def row_max(z):
+        return z.amax(dim=-1, keepdim=True)
+
+    def gold(z, ids):
+        ids = ids - first
+        inside = (ids >= 0) & (ids < cols)
+        got = z.gather(-1, torch.where(inside, ids, 0)[..., None])[..., 0]
+        return torch.where(inside, got, got.new_zeros(()))
+
+    m = sh.unsplit(sh.local_seam(row_max, (Partial("max"),), ["logits"])(logits.detach()))
+    sums = sh.local_seam(lambda z: z.sum(dim=-1), (Partial(),), ["logits"])(torch.exp(logits - m))
+    lse = torch.log(sh.unsplit(sums)) + m[..., 0]
+    return lse - sh.unsplit(sh.local_seam(gold, (Partial(),), ["logits", "tokens"])(
+        logits, labels))
 
 
 # -------------------------------------------------------------------- decode
@@ -341,5 +429,4 @@ def decode_step(params: Params, cache, batch: dict, pos, cfg: ModelConfig):
                                  c_period[f"slot{j}"], pos)
     for i, (sb, mb) in enumerate(_blocks_for_tail(cfg)):
         x, _ = _decode_layer(cfg, sb, mb, params["tail"][i], x, cache["tail"][i], pos)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return torch.einsum("bsd,dv->bsv", x, _head(cfg, params)), cache
+    return _logits(cfg, params, x), cache

@@ -5,7 +5,10 @@ the parameter tree (dicts and lists of tensors), not a
 ``torch.optim.Optimizer``, so the state is a tree with the reference's
 names (``{"m": tree, "v": tree, "step": int32 scalar}``) and checkpoints
 under them (``CheckpointManager``). Like the reference, ``adamw_update``
-returns new trees and leaves its inputs as they were.
+returns new trees and leaves its inputs as they were. Every operation is
+elementwise, so in a tensor-parallel step (``launch.shardings.sharded``)
+it runs on each rank's shards of the parameters, gradients and moments
+(DTensors laid out alike) and moves nothing between ranks.
 """
 
 from __future__ import annotations

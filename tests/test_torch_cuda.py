@@ -36,7 +36,9 @@ and MoE smoke models' forward and decode against the CPU; the
 event-timed fall-back of the script's device-only times against the trace;
 and for the pod-mesh layer, the sharded train step over a world-size-1
 NCCL group bit-identical to the unsharded one and, on a machine with four
-cards (skipped on one), over four NCCL ranks against the microbatched step.
+cards (skipped on one), over four NCCL ranks against the microbatched step
+and, split over ``model`` on a (1, 4) mesh at internlm2-1.8b's widths,
+against the unsharded step, beside the gathered route's memory and time.
 """
 
 import dataclasses
@@ -997,6 +999,16 @@ def test_sharded_train_step_over_nccl_is_the_unsharded_step(cuda):
         dist.destroy_process_group()
 
 
+# A step split over ``model`` against the unsharded step on the card,
+# float32 without tf32: the partial sums over the model ranks add in
+# another order. The losses within TP_TOL; the gradients, moments and
+# weights after each step held by tests/test_torch_tensor_parallel.py's
+# ``adam_state_gaps`` at TP_TOL (AdamW turns a gradient within its own
+# rounding into a weight up to 2 lr apart: each weight is held within
+# TP_TOL plus what the two runs' own moments make of its updates).
+TP_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
 def _four_rank_worker(rank: int, store_path: str, out_dir: str) -> None:
     """One of four NCCL ranks on a (2, 2) ("data", "model") mesh, a card
     each: two sharded train steps under each rule table, the state gathered
@@ -1011,7 +1023,7 @@ def _four_rank_worker(rank: int, store_path: str, out_dir: str) -> None:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw_init
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_map
 
     torch.cuda.set_device(rank)
     dist.init_process_group("nccl", store=dist.FileStore(store_path, 4), rank=rank, world_size=4)
@@ -1031,38 +1043,122 @@ def _four_rank_worker(rank: int, store_path: str, out_dir: str) -> None:
                 o_spec = shd.opt_specs_tree(None, p_spec)
                 rows = shd.per_batch(shd.batch_specs_tree(batches[0], ctx))
                 step = shd.sharded(make_train_step(cfg, 1), (p_spec, o_spec, rows),
-                                   (p_spec, o_spec, None), ctx)
+                                   (p_spec, o_spec, None), ctx, cfg=cfg)
             p, o = shd.place(params, p_spec, mesh), shd.place(adamw_init(params), o_spec, mesh)
-            losses = []
+            losses, states = [], []
             for b in batches:
                 p, o, m = step(p, o, b)
                 losses.append(m["loss"].cpu())
-            out[profile] = (losses, [x.full_tensor().cpu() for x in tree_leaves([p, o])])
+                states.append(tree_map(lambda x: x.full_tensor().cpu(), [p, o]))
+            out[profile] = (losses, states, step.route)
         if rank == 0:
             torch.save(out, os.path.join(out_dir, "out.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def test_sharded_train_step_over_nccl_at_four_ranks(cuda, tmp_path):
-    """Four cards, one NCCL rank each, a (2, 2) mesh: the sharded train
-    step under ``"tp"`` (2 data-parallel ranks, ``model`` pairs repeating
-    each other's compute) bit-identical to the unsharded step with 2
-    microbatches on one card, and under ``"dp"`` (4 data-parallel ranks)
-    within rtol 1e-4 / atol 1e-5 of the one with 4 (NCCL adds the four
-    gradients in another order than the microbatch loop)."""
-    import torch.multiprocessing as mp
+# The (1, 4) case: internlm2-1.8b's widths (d_model 2048, 16 heads on 8 KV
+# heads, d_ff 8192, vocab 92,544: each divides over 4) at 2 layers, in
+# float32 so that it is held to TP_TOL, 2 steps on 4 x 512 batches.
+TP4_LAYERS, TP4_BATCH, TP4_LEN, TP4_STEPS, TP4_LR = 2, 4, 512, 2, 1e-4
+
+
+def _tp4_worker(rank: int, store_path: str, out_dir: str) -> None:
+    """One of four NCCL ranks on a (1, 4) mesh: TP4_STEPS train steps at
+    internlm2-1.8b's widths on the "tp" route and on the gathered route,
+    in turns (tp, gathered, tp, gathered), each from the same weights:
+    each rank's ms a step and peak memory a route; rank 0 then runs the
+    unsharded step on its card and holds the first turn's states to it
+    (the tp route's by ``adam_state_gaps``, the gathered route's bits)."""
+    import json
+    import os
+    import time
+
+    import torch.distributed as dist
 
     from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw_init
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_map
+    from test_torch_tensor_parallel import adam_state_gaps
 
-    if torch.cuda.device_count() < 4:
-        pytest.skip("needs four cards")
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store_path, 4), rank=rank, world_size=4)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", rank)
+        cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=TP4_LAYERS,
+                                  param_dtype="float32", compute_dtype="float32")
+        data = SyntheticLM(cfg.vocab_size, seed=3)
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                    data.batch(i, TP4_BATCH, TP4_LEN).items()} for i in range(TP4_STEPS)]
+        mesh = make_mesh((1, 4), ("data", "model"))
+        train = make_train_step(cfg, 1, lr=TP4_LR)
+        params = init_params(cfg, seed=0, device=dev)
+        with sh.use_mesh(mesh) as ctx:
+            p_spec = shd.param_specs_tree(params, ctx)
+            o_spec = shd.opt_specs_tree(None, p_spec)
+            rows = shd.per_batch(shd.batch_specs_tree(batches[0], ctx))
+            specs = ((p_spec, o_spec, rows), (p_spec, o_spec, None), ctx)
+            steps = {route: shd.sharded(train, *specs, cfg=cfg, route=route)
+                     for route in ("tp", "gathered")}
+        report = {"routes": {k: v.route for k, v in steps.items()}, "ms": {}, "peak": {}}
+        kept = {}
+        for turn in range(2):
+            for route, step in steps.items():
+                p = shd.place(params, p_spec, mesh)
+                o = shd.place(adamw_init(params), o_spec, mesh)
+                losses, states, peak = [], [], 0
+                for b in batches:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    p, o, m = step(p, o, b)
+                    torch.cuda.synchronize()
+                    report["ms"].setdefault(route, []).append((time.perf_counter() - t0) * 1e3)
+                    peak = max(peak, torch.cuda.max_memory_allocated())
+                    losses.append(float(m["loss"]))
+                    if turn == 0:  # each step's whole state, to rank 0's host memory
+                        whole = tree_map(lambda x: x.full_tensor(), [p, o])  # every rank joins
+                        states.append(tree_map(lambda x: x.cpu(), whole) if rank == 0 else None)
+                        del whole
+                report["peak"].setdefault(route, []).append(peak)
+                if turn == 0:
+                    kept[route] = (losses, states)
+                del p, o
+                torch.cuda.empty_cache()
+        if rank == 0:
+            plain = make_train_step(cfg, 1, lr=TP4_LR)
+            u_p, u_o = params, adamw_init(params)
+            losses, want = [], []
+            for b in batches:
+                u_p, u_o, m = plain(u_p, u_o, b)
+                losses.append(float(m["loss"]))
+                want.append([u_p, u_o])
+            report["losses"] = losses
+            bad, seen = adam_state_gaps(kept["tp"][1], want, TP4_LR, TP_TOL)
+            final = tree_leaves(kept["gathered"][1][-1])
+            report["against_unsharded"] = {
+                "tp": {"losses": kept["tp"][0], "past_tolerance": bad, "seen": seen},
+                "gathered": {"losses": kept["gathered"][0],
+                             "bit_identical": all(torch.equal(a.to(b.device), b) for a, b
+                                                  in zip(final, tree_leaves(want[-1]),
+                                                         strict=True))}}
+        with open(os.path.join(out_dir, f"tp4_r{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_four(target, tmp_path) -> None:
+    import torch.multiprocessing as mp
+
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_four_rank_worker, args=(r, str(tmp_path / "store"),
-                                                          str(tmp_path))) for r in range(4)]
+    procs = [ctx.Process(target=target, args=(r, str(tmp_path / "store"), str(tmp_path)))
+             for r in range(4)]
     for p in procs:
         p.start()
     for p in procs:
@@ -1073,6 +1169,26 @@ def test_sharded_train_step_over_nccl_at_four_ranks(cuda, tmp_path):
             p.kill()
             p.join()
     assert not alive and [p.exitcode for p in procs] == [0] * 4
+
+
+def test_sharded_train_step_over_nccl_at_four_ranks(cuda, tmp_path):
+    """Four cards, one NCCL rank each, a (2, 2) mesh: the sharded train
+    step under ``"tp"`` (2 data-parallel ranks, each step split over
+    ``model`` pairs) against the unsharded step with 2 microbatches on one
+    card, the losses within ``TP_TOL`` and the state of each step held by
+    ``adam_state_gaps`` at ``TP_TOL``; under ``"dp"`` (4 data-parallel
+    ranks) within rtol 1e-4 / atol 1e-5 of the one with 4 (NCCL adds the
+    four gradients in another order than the microbatch loop)."""
+    from test_torch_tensor_parallel import adam_state_gaps
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    _spawn_four(_four_rank_worker, tmp_path)
     got = torch.load(tmp_path / "out.pt", weights_only=False)
     cfg = dataclasses.replace(get_config("internlm2-1.8b", smoke=True), d_head=32)
     data = SyntheticLM(cfg.vocab_size, seed=3)
@@ -1082,17 +1198,46 @@ def test_sharded_train_step_over_nccl_at_four_ranks(cuda, tmp_path):
         params = init_params(cfg, seed=0, device=cuda)
         opt = adamw_init(params)
         plain = make_train_step(cfg, n)
-        losses = []
+        losses, want = [], []
         for b in batches:
             params, opt, m = plain(params, opt, b)
             losses.append(m["loss"].cpu())
-        want = [x.cpu() for x in tree_leaves([params, opt])]
-        got_losses, got_state = got[profile]
-        if n == 2:
-            assert all(torch.equal(a, b) for a, b in zip(got_losses, losses))
-            assert all(torch.equal(a, b) for a, b in zip(got_state, want))
+            want.append(tree_map(lambda x: x.cpu(), [params, opt]))
+        got_losses, got_states, route = got[profile]
+        assert route == ("tp" if profile == "tp" else "gathered")
+        np.testing.assert_allclose(torch.stack(got_losses).numpy(),
+                                   torch.stack(losses).numpy(), rtol=1e-4, atol=1e-5)
+        if profile == "tp":
+            bad, seen = adam_state_gaps(got_states, want, 1e-4, TP_TOL)
+            print("\n".join(seen))
+            assert not bad, bad
         else:
-            np.testing.assert_allclose(torch.stack(got_losses).numpy(),
-                                       torch.stack(losses).numpy(), rtol=1e-4, atol=1e-5)
-            for a, b in zip(got_state, want):
+            for a, b in zip(tree_leaves(got_states[-1]), tree_leaves(want[-1])):
                 np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_tensor_parallel_train_step_at_internlm2_widths_on_four_cards(cuda, tmp_path):
+    """Four cards, a (1, 4) mesh, internlm2-1.8b's widths at 2 layers in
+    float32: the step split over ``model`` against the unsharded step on
+    one card, the losses within ``TP_TOL`` and the state of each step held
+    by ``adam_state_gaps`` at ``TP_TOL`` (the gathered route bit-identical
+    to it); each rank's peak memory and ms a step on both routes are
+    printed."""
+    import json
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    _spawn_four(_tp4_worker, tmp_path)
+    reports = [json.loads((tmp_path / f"tp4_r{r}.json").read_text()) for r in range(4)]
+    for r, rep in enumerate(reports):
+        print(f"rank {r}: ms a step {rep['ms']}, peak bytes {rep['peak']}")
+    against = reports[0]["against_unsharded"]
+    print(f"unsharded losses {reports[0]['losses']}; against them {against}")
+    for r, rep in enumerate(reports):
+        assert rep["routes"] == {"tp": "tp", "gathered": "gathered"}
+        # Each rank holds a quarter of the weights and their moments.
+        assert max(rep["peak"]["tp"]) < max(rep["peak"]["gathered"])
+    for got in against.values():
+        np.testing.assert_allclose(got["losses"], reports[0]["losses"], **TP_TOL)
+    assert against["gathered"]["bit_identical"]
+    assert not against["tp"]["past_tolerance"], against["tp"]["past_tolerance"]

@@ -31,11 +31,12 @@ from repro_torch.models import SHAPES
 
 REPO = Path(__file__).resolve().parents[1]
 
-# repro/launch/dryrun.py analyse() and run_cell(): the record's keys.
+# repro/launch/dryrun.py analyse() and run_cell(): the record's keys, and
+# the port's route over ``model`` (launch.shardings.compute_route).
 RECORD_KEYS = {"arch", "shape", "n_devices", "per_device", "collectives", "probe",
                "roofline_s", "bottleneck", "model_flops", "useful_flops_ratio",
                "roofline_fraction", "ideal_memory_s", "bandwidth_fraction", "compile_s",
-               "multi_pod"}
+               "multi_pod", "route"}
 PER_DEVICE_KEYS = {"argument_bytes", "output_bytes", "temp_bytes", "peak_hbm_bytes",
                    "hlo_flops", "hlo_bytes", "collective_bytes"}
 COLLECTIVE_KINDS = {"all-reduce", "all-gather", "reduce-scatter", "all-to-all",
@@ -107,6 +108,7 @@ def test_dryrun_single_cell(tmp_path):
         assert set(rec["roofline_s"]) == {"compute", "memory", "collective"}
         assert rec["bottleneck"] in ("compute", "memory", "collective")
         assert rec["model_flops"] == 2.0 * get_config("internlm2-1.8b").n_active_params * 128
+        assert rec["route"] == "tp"  # a dense model split over ``model``
     assert not single["multi_pod"] and multi["multi_pod"]
     want = _reference_shard_bytes("internlm2-1.8b", "decode_32k", multi_pod=False)
     assert single["per_device"]["argument_bytes"] == want
