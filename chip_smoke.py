@@ -181,7 +181,16 @@ in a row is taken with CUDA events behind a spin kernel instead
    to the unsharded path's. Under ``"tp"`` each runs, named so, on the
    tensor-parallel route (DTensor activations over ``model``, every
    attention launch through the ``local_map`` seam, counted) and on the
-   gathered route, in turns, each route's median ms printed. (c)
+   gathered route, in turns, each route's median ms printed. (d) The
+   recurrent models on the (1, 1) mesh under ``"tp"``, on both routes in
+   turns: recurrentgemma-9b at one period (rglru, rglru, local_attn) and
+   rwkv6-7b at 2 layers, bf16, remat, 2 train steps on 4 x 2048 batches
+   (the vocabulary cut to ``POD_RECURRENT_TRAIN_VOCAB``), the 4 x 512
+   prefill and 16 serve steps, each step's loss, params and moments and
+   the final cache held to the unsharded path's by a digest of each
+   leaf's bits, the prefill logits and tokens bit for bit;
+   recurrentgemma's bf16 dh-256 ``flash_attention`` launches counted, on
+   the tp route every one through the seam. (c)
    ``launch.train.restore_sharded`` of a smoke-size checkpoint
    the phase writes, every placed leaf bit-identical to the unsharded
    restore. Its seconds beside ``POD_BUDGET_S``.
@@ -244,6 +253,9 @@ BATCH, PROMPT_LEN, STEPS = 4, 8, 16
 # the H100 machine), and the byte quota of tenant t1, below the page of
 # its one upload.
 STORE_READERS = 2
+# How long phase 9 waits for its server to count the requests made before
+# it reads the request counters (_await_counted).
+COUNTED_DEADLINE_S = 5.0
 QUOTA_T1 = 1 << 20
 MATMUL_SHAPES = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048), (2048, 92544)]
 # Matmul calls of each (K, N) in one decode step at N_LAYERS: q,o / k,v /
@@ -335,6 +347,21 @@ POD_MESHES = (((1, 1), ("data", "model")), ((1, 1, 1), ("pod", "data", "model"))
 POD_PROFILES = ("tp", "dp")
 POD_TURNS = 2
 POD_BUDGET_S = 45.0
+# Phase 12 (d): the recurrent models at their widths on the (1, 1) mesh under
+# the "tp" table, bf16, remat: recurrentgemma-9b at one period (rglru, rglru,
+# local_attn; no tail: d_rnn 4096, 16 heads of 256 on 1 KV head, window
+# 2048, d_ff 12,288, vocab 256,000) and rwkv6-7b at 2 layers (64 heads of
+# 64, d_ff 14,336, vocab 65,536); POD_RECURRENT_STEPS train steps on 4 x 2048
+# batches and the serve path of (b), on both routes in POD_TURNS turns. The
+# train steps cut the vocabulary to POD_RECURRENT_TRAIN_VOCAB: at 256,000
+# the embedding and the head are 2.1 B of recurrentgemma's 2.75 B
+# parameters, and AdamW's new float32 moments and its temporaries beside the
+# old state (27.5 GB) and the gradients come to about 80 GB. The states are
+# held by each leaf's digest (_digest): two of them, beside a step's own,
+# do not fit on the card.
+POD_RECURRENT = {"recurrentgemma-9b": dict(n_layers=3, tail=(), tail_mix=()),
+                 "rwkv6-7b": dict(n_layers=2)}
+POD_RECURRENT_STEPS, POD_RECURRENT_TRAIN_VOCAB = 2, 65_536
 # Phase 10 (the model zoo): (batch, prompt length) of each prefill, and
 # arctic-480b's depth: its 35 layers (477 B parameters) cannot be held on
 # one card; one layer's 128 experts and dense residual are 14.07 B (28.1 GB
@@ -1548,6 +1575,26 @@ def _nstat_requests(url: str) -> tuple[dict, float]:
     return rendered, secs
 
 
+def _await_counted(requests: Counter) -> None:
+    """Wait, at most ``COUNTED_DEADLINE_S``, until the in-process
+    registry's ``neurstore_server_requests_total`` shows the ``requests``
+    made (by (route, method, status class)): the server's handler counts a
+    request after it has written the answer, so a client can read a whole
+    answer and scrape before it is counted. The exact comparison after the
+    scrape says whether the counters are the requests."""
+    from repro_torch.obs.metrics import default_registry, parse_prometheus_text
+
+    t = time.perf_counter()
+    while time.perf_counter() - t < COUNTED_DEADLINE_S:
+        fam = parse_prometheus_text(default_registry().render()).get(
+            "neurstore_server_requests_total", {"samples": []})
+        seen = {(s["labels"]["route"], s["labels"]["method"], s["labels"]["status"]): s["value"]
+                for s in fam["samples"]}
+        if all(seen.get(k, 0.0) >= v for k, v in requests.items()):
+            return
+        time.sleep(0.01)
+
+
 def _fsck_accounting(root: str) -> None:
     """``python -m repro_torch.tools.fsck ROOT --accounting`` on the card:
     its check (no engine: page framing and records, index frames parsed
@@ -1700,6 +1747,7 @@ def phase_store_service(keep: dict) -> dict[str, int]:
         requests["stats", "GET", "2xx"] += 1
         acct = client.accounting()
         requests["accounting", "GET", "2xx"] += 1
+        _await_counted(requests)
         scraped = parse_prometheus_text(_get(server.host, server.port, "/v1/metrics"))
         served = {(s["labels"]["route"], s["labels"]["method"], s["labels"]["status"]): s["value"]
                   for s in scraped["neurstore_server_requests_total"]["samples"]}
@@ -1787,6 +1835,7 @@ def phase_store_service(keep: dict) -> dict[str, int]:
         # (7) The port's nstat scraping the server: the request counters it
         # renders equal the requests made (step (4)'s scrape included).
         requests["metrics", "GET", "2xx"] += 1
+        _await_counted(requests)
         rendered, secs = _nstat_requests(f"http://{server.host}:{server.port}")
         want = {k: float(v) for k, v in requests.items()}
         if rendered != want:
@@ -3118,6 +3167,201 @@ def _tree_gap(got, want) -> tuple[bool, float]:
     return same, gap
 
 
+def _digest(tree) -> list[tuple[int, int]]:
+    """Each tensor leaf's bits, summed on the card as int64 plainly and
+    weighted by position (DTensors by their local shards): two trees whose
+    leaves differ in any bit differ here but for a collision of both sums."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_leaves
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    chunk = 1 << 26
+    weights = torch.arange(chunk, dtype=torch.int64, device="cuda") % 65521 + 1
+    out = []
+    for x in tree_leaves(tree):
+        x = x.to_local() if isinstance(x, DTensor) else x
+        bits = x.contiguous().reshape(-1).view(ints[x.element_size()])
+        plain = weighted = torch.zeros((), dtype=torch.int64, device=x.device)
+        for i in range(0, bits.numel(), chunk):
+            part = bits[i:i + chunk].to(torch.int64)
+            plain = plain + part.sum()
+            weighted = weighted + (part * weights[:part.numel()]).sum() * (i // chunk + 1)
+        out.append((int(plain), int(weighted)))
+    return out
+
+
+def _pod_recurrent(dev, mesh, seam: dict, route_ms: dict) -> None:
+    """Phase 12 (d): the recurrent models' train steps and serve path on
+    ``mesh`` (one rank) under the "tp" table, on the tp route (asked for by
+    name) and the gathered one in turns, each held to the unsharded path's
+    bits; recurrentgemma's local attention launches at head dim 256
+    (forward and remat's recompute) counted, on the tp route all through
+    the seam."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_train_step
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.optim import adamw_init
+
+    b = POD_PREFILL[0]
+    for arch, cut in POD_RECURRENT.items():
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        tcfg = dataclasses.replace(cfg, vocab_size=min(cfg.vocab_size,
+                                                       POD_RECURRENT_TRAIN_VOCAB))
+        attn = sum(kind == "local_attn" for kind in cfg.period) * cfg.n_periods
+        log(f"pod mesh (d) {arch}: {cfg.n_layers} layers {cfg.period}, d_model {cfg.d_model}, "
+            f"d_rnn {cfg.d_rnn}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} ({tcfg.vocab_size} in "
+            f"the train steps), {cfg.param_dtype}, remat {cfg.remat}; {POD_RECURRENT_STEPS} "
+            f"train steps at {TRAIN_BATCH} x {TRAIN_LEN}, a {POD_PREFILL[0]} x "
+            f"{POD_PREFILL[1]} prefill and {STEPS} serve steps, on the tp and gathered routes "
+            f"in {POD_TURNS} turns")
+
+        def counted(run):
+            """``run()``'s result, the dh-256 launches and the calls through
+            the seam it made."""
+            before, calls = ops.launch_counts()["flash_attention_bfloat16_dh256"], seam["calls"]
+            out = run()
+            return (out, ops.launch_counts()["flash_attention_bfloat16_dh256"] - before,
+                    seam["calls"] - calls)
+
+        # (d1) the train steps
+        data = SyntheticLM(tcfg.vocab_size, seed=SEED + 12)
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                    data.batch(i, TRAIN_BATCH, TRAIN_LEN).items()}
+                   for i in range(POD_RECURRENT_STEPS)]
+        params0 = init_params(tcfg, SEED + 12, device=dev)
+
+        def train(step, place=lambda t, _s: t, specs=(None, None)):
+            """(each step's (loss, digest of params and moments), ms a step,
+            peak bytes)."""
+            torch.cuda.reset_peak_memory_stats()
+            params, opt = place(params0, specs[0]), place(adamw_init(params0), specs[1])
+            got, ms = [], []
+            for batch in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                got.append((float(m["loss"]), _digest([params, opt])))
+            return got, ms, torch.cuda.max_memory_allocated()
+
+        # The unsharded steps, twice: bit-identity below presumes a step that
+        # repeats its own bits.
+        plain = make_train_step(tcfg, 1, lr=TRAIN_LR)
+        (want, plain_ms, plain_peak), want_launched, _ = counted(lambda: train(plain))
+        repeats = train(plain)[0] == want
+        log(f"pod mesh (d1) {arch}: unsharded train steps {[round(t, 3) for t in plain_ms]} ms, "
+            f"losses {[round(loss, 6) for loss, _ in want]}, peak {plain_peak} bytes, "
+            f"{want_launched} dh-256 launches; a second run bit-identical {repeats}")
+        if not repeats or want_launched != 2 * attn * POD_RECURRENT_STEPS:
+            fail(f"pod mesh (d1) {arch}: the unsharded step repeats its bits {repeats}, "
+                 f"{want_launched} dh-256 launches (want {2 * attn * POD_RECURRENT_STEPS})")
+        with sh.use_mesh(mesh) as ctx:
+            p_spec = shd.param_specs_tree(params0, ctx)
+            o_spec = shd.opt_specs_tree(None, p_spec)
+            rows = shd.per_batch(shd.batch_specs_tree(batches[0], ctx))
+            steps = [shd.sharded(plain, (p_spec, o_spec, rows), (p_spec, o_spec, None), ctx,
+                                 cfg=tcfg, route=r) for r in _asked("tp")]
+        if [st.route for st in steps] != ["tp", "gathered"]:
+            fail(f"pod mesh (d1) {arch}: routes {[st.route for st in steps]}")
+        placed = lambda t, s: shd.place(t, s, mesh)  # noqa: E731
+        for turn in range(POD_TURNS):
+            for step in steps:
+                (got, ms, peak), launched, calls = counted(
+                    lambda: train(step, placed, (p_spec, o_spec)))  # noqa: B023
+                route_ms.setdefault(f"train {arch} {step.route}", []).extend(ms)
+                line = (f"pod mesh (d1) {arch} route {step.route} turn {turn}: sharded train "
+                        f"steps {[round(t, 3) for t in ms]} ms (unsharded "
+                        f"{[round(t, 3) for t in plain_ms]}), peak {peak} bytes, {launched} "
+                        f"dh-256 launches (want {want_launched}), {calls} through the seam; "
+                        f"every step's loss and the digests of its params and moments equal to "
+                        f"the unsharded step's {got == want}")
+                if not (got == want and launched == want_launched
+                        and calls == (launched if step.route == "tp" else 0)):
+                    fail(line)
+                log(line)
+        del params0, batches, steps
+        torch.cuda.empty_cache()
+
+        # (d2) the serve path, under the serving rules
+        params0 = init_params(cfg, SEED + 12, device=dev)
+        prompts = torch.from_numpy(np.random.default_rng(SEED + 12).integers(
+            0, cfg.vocab_size, POD_PREFILL)).to(dev)
+
+        def serve(prefill, step, params, cache):
+            """(the prefill's logits, the tokens, the cache's digest, prefill
+            ms, median serve ms)."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = prefill(params, {"tokens": prompts})
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            toks, times = [tok], []
+            for pos in range(STEPS):
+                t0 = time.perf_counter()
+                tok, cache = step(params, cache, {"tokens": tok[:, None].long()}, pos)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                toks.append(tok)
+            return logits, torch.stack(toks, dim=1), _digest(cache), prefill_ms, float(
+                np.median(times))
+
+        runs = [counted(lambda: serve(make_prefill_step(cfg), make_serve_step(cfg), params0,
+                                      init_cache(cfg, b, STEPS, device=dev)))
+                for _ in range(2)]
+        want, want_launched, _ = runs[0]
+        again = runs[1][0]
+        repeats = (torch.equal(again[0], want[0]) and torch.equal(again[1], want[1])
+                   and again[2] == want[2])
+        log(f"pod mesh (d2) {arch}: unsharded prefill {again[3]:.6f} ms, serve step "
+            f"{again[4]:.6f} ms, {want_launched} dh-256 launches a prefill; a second run "
+            f"bit-identical {repeats}")
+        if not repeats or want_launched != attn:
+            fail(f"pod mesh (d2) {arch}: the unsharded path repeats its bits {repeats}, "
+                 f"{want_launched} dh-256 launches (want {attn})")
+        del runs, again
+        with sh.use_mesh(mesh, seq_shard=False, serve=True) as ctx:
+            p_spec = shd.param_specs_tree(params0, ctx)
+            c_spec = shd.cache_specs_tree(init_cache(cfg, b, STEPS, device=dev), ctx,
+                                          cfg.n_kv_heads)
+            rows = shd.per_batch(shd.batch_specs_tree({"tokens": prompts}, ctx))
+            paths = [(shd.sharded(make_prefill_step(cfg), (p_spec, rows),
+                                  (shd.per_batch(None),), ctx, cfg=cfg, route=r),
+                      shd.sharded(make_serve_step(cfg), (p_spec, shd.per_batch(c_spec), rows,
+                                                         None),
+                                  (shd.per_batch(None), shd.per_batch(c_spec)), ctx, cfg=cfg,
+                                  route=r)) for r in _asked("tp")]
+        if [srv.route for _, srv in paths] != ["tp", "gathered"]:
+            fail(f"pod mesh (d2) {arch}: routes {[srv.route for _, srv in paths]}")
+        sp = shd.place(params0, p_spec, mesh)
+        for turn in range(POD_TURNS):
+            for prefill, srv in paths:
+                route = srv.route
+                (logits, toks, cache, prefill_ms, serve_ms), launched, calls = counted(
+                    lambda: serve(prefill, srv, sp,  # noqa: B023
+                                  shd.place(init_cache(cfg, b, STEPS, device=dev), c_spec, mesh)))
+                route_ms.setdefault(f"prefill {arch} {route}", []).append(prefill_ms)
+                route_ms.setdefault(f"serve {arch} {route}", []).append(serve_ms)
+                gap = float((logits - want[0]).abs().max())
+                ok = torch.equal(toks, want[1]) and cache == want[2]
+                line = (f"pod mesh (d2) {arch} route {route} turn {turn}: sharded prefill "
+                        f"{prefill_ms:.6f} ms, serve step {serve_ms:.6f} ms; {launched} dh-256 "
+                        f"launches (want {attn}), {calls} through the seam; prefill logits max "
+                        f"gap {gap:.3e}; tokens and the cache's digest equal {ok}")
+                if not (ok and gap == 0.0 and launched == attn
+                        and calls == (launched if route == "tp" else 0)):
+                    fail(line)
+                log(line)
+        del params0, sp, paths, want
+        torch.cuda.empty_cache()
+
+
 def phase_pod_mesh() -> dict[str, int]:
     """Phase 12: the sharded train and serve steps and the elastic restore
     on DTensor state, each against its unsharded counterpart; under the
@@ -3337,6 +3581,9 @@ def phase_pod_mesh() -> dict[str, int]:
                         log(line)
                 del cache, paths, steps
                 torch.cuda.empty_cache()
+        t_rec = time.perf_counter()
+        _pod_recurrent(dev, make_mesh(*POD_MESHES[0]), seam, route_ms)
+        log(f"pod mesh (d), the recurrent models: {time.perf_counter() - t_rec:.3f} s")
         for key, ms in route_ms.items():
             log(f"pod mesh: {key}: median {float(np.median(ms)):.6f} ms of {len(ms)}")
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core import StorageEngine
+from ..core.loader import RECONSTRUCT_WORKERS
 from ..kernels.ops import resolve_device
 
 SEP = "//"
@@ -183,11 +184,12 @@ class CheckpointManager:
             return not params_only or name.startswith("params" + SEP)
 
         flat = {}
-        for name in filter(keep, lm.tensor_names()):
+        for name, arr in lm.iter_tensors(filter(keep, lm.tensor_names()),
+                                         workers=RECONSTRUCT_WORKERS):
             # float32 from the store, cast by torch (bfloat16 needs no numpy
             # extension type).
             dt = getattr(torch, arch["dtypes"].get(name, "float32"))
-            flat[name] = torch.from_numpy(lm.tensor(name)).to(self.device, dtype=dt)
+            flat[name] = torch.from_numpy(arr).to(self.device, dtype=dt)
         for key, val in arch.get("ints", {}).items():
             if keep(key):
                 flat[key] = torch.tensor(val, dtype=torch.int32, device=self.device)

@@ -20,6 +20,10 @@ Three paper mechanisms, adapted from ONNX-graph surgery to PyTorch:
   copy once every sharing record has consumed it.
 * **Pipelining** (§4.3.3) — :class:`PipelineLoader` overlaps page I/O,
   de-quantization and consumption in a 3-stage thread pipeline.
+  :meth:`LoadedModel.iter_tensors` can reconstruct several tensors at
+  once, each on a thread of its own (numpy releases the GIL in the
+  reconstruction's array operations), and hand them out in order; a
+  checkpoint restore takes ``RECONSTRUCT_WORKERS`` of them.
 
 Concurrency model (the snapshot-isolation PR; see ``docs/concurrency.md``):
 
@@ -38,11 +42,13 @@ opened after the writer's commit sees the new state.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import weakref
-from collections import Counter
+from collections import Counter, deque
 from collections.abc import Mapping
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -55,6 +61,14 @@ __all__ = [
     "CompressedParams", "KernelNotReady", "LoadedModel", "ModelSnapshot",
     "PipelineLoader", "materialize_many", "reconstruct_torch",
 ]
+
+
+# The tensors a checkpoint restore reconstructs at once, a thread each
+# (numpy's float64 dequantize, add and cast release the GIL). The server's
+# download stream keeps one: it shares the host with the wire's encoding
+# and its readers, and a reader's decoded payloads fill the buffer pool,
+# whose fill the write admission reads.
+RECONSTRUCT_WORKERS = min(4, os.cpu_count() or 1)
 
 
 class KernelNotReady(RuntimeError):
@@ -247,17 +261,35 @@ class LoadedModel:
         """Full reconstruction of every tensor (the non-compression-aware path)."""
         return {name: self.tensor(name) for name in list(self._order)}
 
-    def iter_tensors(self):
-        """Stream ``(name, tensor)`` record-by-record, in page order.
+    def iter_tensors(self, names=None, workers: int = 1):
+        """Stream ``(name, tensor)`` record-by-record, in page order (or in
+        the order of ``names``, a subset of :meth:`tensor_names`).
 
-        The bounded-memory reconstruction path: one tensor is resident
-        at a time (plus the shared de-quantized base cache), so a
-        consumer that forwards each tensor — the serving layer's chunked
-        download — never holds the whole model as one buffer. Entirely
-        lock-free off the snapshot, like :meth:`materialize`.
+        The bounded-memory reconstruction path: one tensor is resident at
+        a time, plus the ``workers - 1`` being reconstructed ahead of it,
+        each on a thread of its own (and the shared de-quantized base
+        cache), so a consumer that forwards each tensor — the serving
+        layer's chunked download — never holds the whole model as one
+        buffer. Entirely lock-free off the snapshot, like
+        :meth:`materialize`.
         """
-        for name in list(self._order):
-            yield name, self.tensor(name)
+        todo = iter(list(self._order) if names is None else list(names))
+        if workers <= 1:
+            for name in todo:
+                yield name, self.tensor(name)
+            return
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            ahead: deque = deque()
+            for name in todo:
+                ahead.append((name, pool.submit(self.tensor, name)))
+                if len(ahead) == workers:
+                    break
+            while ahead:
+                name, job = ahead.popleft()
+                nxt = next(todo, None)
+                if nxt is not None:
+                    ahead.append((nxt, pool.submit(self.tensor, nxt)))
+                yield name, job.result()
 
     # ------------------------------------------ compressed (augmented graph)
     def _compressed_entry(self, name: str) -> dict:

@@ -33,9 +33,11 @@ What differs from the reference:
   on its shards and says where the result lies (sharded, or a partial sum
   that a later ``constrain`` reduces), and never moves an operand that is
   already sharded. Functions that must see whole tensors (the attention
-  kernel, RoPE, the cross entropy over vocabulary shards) run behind
+  kernel, RoPE, the cross entropy over vocabulary shards) or that loop on
+  a rank's own part (the RG-LRU scan, the RWKV-6 chunk loop) run behind
   :func:`local_seam`, a ``local_map`` whose placements come from rule
-  names. Outside such a step a DTensor is redistributed over the whole
+  names; inside one, :func:`gather_shards` makes a split local tensor
+  whole for a contraction over its split dim. Outside such a step a DTensor is redistributed over the whole
   mesh and any other tensor is returned as it is.
 * ``data_parallel_sum`` / ``data_parallel_size`` are the gradient
   reduction that GSPMD inserts for the reference: inside a sharded step
@@ -49,8 +51,9 @@ import threading
 
 __all__ = ["P", "ShardingCtx", "activate", "cache_logical", "compute_mesh", "constrain",
            "current", "data_parallel", "data_parallel_size", "data_parallel_sum", "einsum",
-           "local_seam", "mesh_axis_sizes", "model_rank", "placements", "replicated", "resume",
-           "snapshot", "spec", "tensor_parallel", "unsplit", "use_mesh"]
+           "gather_shards", "laid_out_as", "local_seam", "mesh_axis_sizes", "model_rank",
+           "own_part", "placements", "replicated", "resume", "snapshot", "spec",
+           "tensor_parallel", "unsplit", "use_mesh"]
 
 _state = threading.local()
 
@@ -528,6 +531,45 @@ def unsplit(x, *dims: int):
     target = tuple(Replicate() if p.is_partial() or (p.is_shard() and p.dim in whole) else p
                    for p in x.placements)
     return _to(x, target)
+
+
+def laid_out_as(x, like):
+    """DTensor ``x`` redistributed to the placements of DTensor ``like``
+    (a partial sum reduce-scattered onto ``like``'s split, say); anything
+    else as it is."""
+    if not hasattr(x, "placements") or not hasattr(like, "placements"):
+        return x
+    return _to(x, tuple(like.placements))
+
+
+def gather_shards(x, dim: int):
+    """For a function behind :func:`local_seam`: inside a tensor-parallel
+    step, the local tensor ``x``, this rank's part of a tensor split over
+    the compute mesh on ``dim``, made whole (an all-gather). Its gradient
+    is taken as a partial sum, which the backward reduce-scatters: each
+    rank contracts the whole tensor with its own columns of a weight.
+    Outside one, a view of ``x``: the gradients of the whole tensor's uses
+    are summed before they meet those of ``x``'s other uses, as in a step,
+    so that both give the same bits at one rank."""
+    sub = compute_mesh()
+    if sub is None:
+        return x.view_as(x)
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    split = DTensor.from_local(x, sub, [Shard(dim % x.ndim)] * sub.ndim, run_check=False)
+    return split.full_tensor(grad_placements=[Partial()] * sub.ndim)
+
+
+def own_part(x, n: int):
+    """For a function behind :func:`local_seam`: the ``n`` entries of the
+    last dim of the whole local tensor ``x`` that this rank's part of a
+    tensor split over the compute mesh on its last dim covers (a
+    replicated weight met by split activations); ``x`` itself where it
+    has ``n``."""
+    if x.shape[-1] == n:
+        return x
+    first = model_rank() * n
+    return x[..., first:first + n]
 
 
 def _resolve(where, x):

@@ -37,7 +37,9 @@ the record's ``route``). Under ``--profile tp`` a dense model's step is
 split over ``model`` (``"tp"``): each rank keeps its shards of the
 weights, computes its heads, FFN columns and vocabulary columns, and the
 collectives are the residual's gathers and reductions and the FSDP
-gathers over ``data``. The recurrent and MoE models, the compressed
+gathers over ``data``; so is a recurrent model's (recurrentgemma,
+rwkv6): each rank scans its own RG-LRU channels and runs its own RWKV-6
+heads. The MoE models, the compressed
 serving step and ``--profile dp`` take the gathered route: each rank
 gathers every weight whole and runs the whole model on its rows, so the
 ranks of a ``model`` group repeat each other's compute, which
@@ -243,7 +245,10 @@ def probe_costs(cfg: ModelConfig, shape: ShapeConfig, mesh, multi_pod: bool,
     its microbatches and sequence length. A train cell on the ``"tp"``
     route also moves activations each microbatch: its probes run at one
     and two microbatches, and the collectives are those of one plus
-    (n_micro - 1) times the difference."""
+    (n_micro - 1) times the difference. A prefill cell on the ``"tp"``
+    route moves only activations (the serving table keeps no weight split
+    over ``data``): its collectives scale with a sub-quadratic probe's
+    sequence as its FLOPs do."""
     n_micro = _microbatches(cfg, shape, mesh, profile) if shape.is_train else None
     pshape, scale = _probe_shape(shape, cfg, n_micro=n_micro)
 
@@ -268,7 +273,8 @@ def probe_costs(cfg: ModelConfig, shape: ShapeConfig, mesh, multi_pod: bool,
     def ext(a, b, scale=scale):
         return (a + (p - 1) * max(b - a, 0.0)) * scale
 
-    kinds = {k: ext(colls[0][k], colls[1][k], 1.0) for k in _KINDS}
+    seq_scale = scale if c1["route"] == "tp" and not shape.is_train else 1.0
+    kinds = {k: ext(colls[0][k], colls[1][k], seq_scale) for k in _KINDS}
     return {
         "flops": ext(c1["flops"], c2["flops"]),
         "bytes": ext(c1["bytes"], c2["bytes"]),

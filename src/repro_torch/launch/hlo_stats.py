@@ -183,21 +183,25 @@ class StepRecorder(TorchDispatchMode):
     """What runs under it: ``collectives`` [(kind, result bytes, group
     size)], ``shapes`` [(kind, result shape, the group's global ranks)] of
     the same
-    collectives, ``ops`` (a Counter of aten op names) and
+    collectives, ``ops`` (a Counter of aten op names),
     ``bytes_accessed`` (the bytes of every non-view, non-collective op's
     tensor arguments and results: what eager execution, which fuses
-    nothing, reads and writes). A DTensor op is passed to DTensor's
-    dispatch, whose local ops and collectives come back here."""
+    nothing, reads and writes) and ``dtensor_ops`` (a Counter of the ops
+    dispatched on DTensors: each costs DTensor's sharding propagation on
+    the host). A DTensor op is passed to DTensor's dispatch, whose local
+    ops and collectives come back here."""
 
     def __init__(self):
         super().__init__()
         self.collectives: list[tuple[str, float, int]] = []
         self.shapes: list[tuple[str, tuple, tuple]] = []
         self.ops: Counter = Counter()
+        self.dtensor_ops: Counter = Counter()
         self.bytes_accessed = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if _has_dtensor(types):
+            self.dtensor_ops[str(func.overloadpacket)] += 1
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)

@@ -16,16 +16,19 @@ data-parallel axes (the ``tokens`` rule's), and the other inputs gathered
 over the data-parallel axes (FSDP). What it does over ``model`` is the
 step's *route* (:func:`compute_route`):
 
-* ``"tp"``, a model of dense blocks under a rule table that shards over
-  a ``model`` axis of more than one rank: the inputs keep their ``model`` shards, as DTensors over the
-  ``model`` submesh, and the model code splits each layer's compute over
-  the axis at the reference's sharding constraints (``sh.constrain``,
-  ``sh.einsum``, ``sh.local_seam``), as GSPMD does at them;
+* ``"tp"``, a model of attention, RG-LRU, RWKV-6 and dense or RWKV
+  channel-mix blocks under a rule table that shards over a ``model`` axis
+  of more than one rank: the inputs keep their ``model`` shards, as
+  DTensors over the ``model`` submesh, and the model code splits each
+  layer's compute over the axis at the reference's sharding constraints
+  (``sh.constrain``, ``sh.einsum``, ``sh.local_seam``), as GSPMD does at
+  them: heads, FFN columns and vocabulary columns, RG-LRU channels and
+  RWKV-6 heads, the scans and the chunk loop on each rank's own;
 * ``"gathered"``, every other step (the ``"dp"`` rules, a ``model`` axis
-  of one rank, the recurrent and MoE blocks, the compressed parameters,
-  a step named no config): every input is gathered whole
-  and the step runs on local tensors, so the ranks of a ``model`` group
-  repeat each other's compute.
+  of one rank, the MoE blocks, the compressed parameters, a step named no
+  config): every input is gathered whole and the step runs on local
+  tensors, so the ranks of a ``model`` group repeat each other's
+  compute.
 
 Either way the gradients are summed over the data-parallel ranks inside
 the step (``sharding.data_parallel_sum`` in ``make_train_step``), so every
@@ -311,33 +314,54 @@ class per_batch:
 
 # The blocks whose compute the model code splits over ``model`` (the
 # reference's sharding constraints are ported for them). A model with any
-# other block (the RG-LRU and RWKV-6 mixes, the routed experts) keeps the
-# gathered route.
-TP_SEQ_BLOCKS = frozenset({"attn", "local_attn"})
-TP_MIX_BLOCKS = frozenset({"swiglu", "gelu"})
+# other block (the routed experts) keeps the gathered route.
+TP_SEQ_BLOCKS = frozenset({"attn", "local_attn", "rglru", "rwkv6"})
+TP_MIX_BLOCKS = frozenset({"swiglu", "gelu", "rwkv_cm"})
+
+
+def _recurrent_widths(cfg) -> dict[str, int]:
+    """The widths that the recurrent blocks of ``cfg`` split over
+    ``model``: each rank scans its own RG-LRU channels and runs its own
+    RWKV-6 heads."""
+    kinds = set(cfg.period) | set(cfg.tail)
+    out = {}
+    if "rglru" in kinds:
+        out["RG-LRU channels (d_rnn)"] = cfg.d_rnn
+    if "rwkv6" in kinds:
+        out["RWKV-6 heads"] = cfg.d_model // cfg.rwkv_head_dim
+    return out
 
 
 def compute_route(ctx: sh.ShardingCtx, cfg, route: str | None = None) -> str:
     """The route a step of ``cfg`` takes under ``ctx`` (:func:`sharded`).
 
     By default ``"tp"`` where the table shards over a ``model`` axis of
-    more than one rank and every block of the config is dense, else
-    ``"gathered"`` (also for a step that names no config): on a ``model``
-    axis of one rank the split has nothing to split and costs DTensor's
-    dispatch. ``route`` asks for a route instead: ``"gathered"`` always,
-    ``"tp"`` wherever the default would split but for the axis' size (a
-    one-rank check of the split route); anything else raises.
+    more than one rank and every block of the config is one that the
+    model code splits (:data:`TP_SEQ_BLOCKS`, :data:`TP_MIX_BLOCKS`: all
+    but the routed experts), else ``"gathered"`` (also for a step that
+    names no config): on a ``model`` axis of one rank the split has
+    nothing to split and costs DTensor's dispatch. ``route`` asks for a
+    route instead: ``"gathered"`` always, ``"tp"`` wherever the default
+    would split but for the axis' size (a one-rank check of the split
+    route); anything else raises. So does the ``"tp"`` route of a config
+    whose RG-LRU channels or RWKV-6 heads do not divide over ``model``:
+    its scans cannot be split, and are not quietly gathered.
     """
     sizes = sh.mesh_axis_sizes(ctx.mesh)
     splits = (cfg is not None and ctx.profile == "tp" and "model" in sizes
               and (set(cfg.period) | set(cfg.tail)) <= TP_SEQ_BLOCKS
               and (set(cfg.mix) | set(cfg.tail_mix)) <= TP_MIX_BLOCKS)
     if route is None:
-        return "tp" if splits and sizes["model"] > 1 else "gathered"
-    if route == "gathered" or (route == "tp" and splits):
-        return route
-    raise ValueError(f"route {route!r} is not open to {getattr(cfg, 'name', cfg)} under the "
-                     f"{ctx.profile!r} table on a mesh of {sizes}")
+        route = "tp" if splits and sizes["model"] > 1 else "gathered"
+    elif not (route == "gathered" or (route == "tp" and splits)):
+        raise ValueError(f"route {route!r} is not open to {getattr(cfg, 'name', cfg)} under "
+                         f"the {ctx.profile!r} table on a mesh of {sizes}")
+    if route == "tp":
+        odd = {what: n for what, n in _recurrent_widths(cfg).items() if n % sizes["model"]}
+        if odd:
+            raise ValueError(f"{cfg.name}'s {odd} do not divide over a model axis of "
+                             f"{sizes['model']} ranks: its recurrent blocks cannot be split")
+    return route
 
 
 def sharded(step, in_specs: tuple, out_specs: tuple, ctx: sh.ShardingCtx, *, cfg=None,

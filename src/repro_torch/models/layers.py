@@ -25,9 +25,10 @@ card). Two constraints the reference leaves to GSPMD are explicit: the
 sequence-sharded residual is gathered (``"residual_gathered"``) before
 the column-parallel products, and the attention's output is laid out as
 ``wo`` is (``"heads"``) before the row-parallel one. The recurrent blocks
-and ``MoE`` are not split over ``model`` (their models take the gathered
-route); ``MoE``'s routing and expert products are plain PyTorch, as the
-reference's are plain ``jnp`` outside any Pallas kernel.
+(``models/recurrent.py``) split their channels and heads the same way;
+``MoE`` is not split over ``model`` (its models take the gathered route);
+its routing and expert products are plain PyTorch, as the reference's are
+plain ``jnp`` outside any Pallas kernel.
 """
 
 from __future__ import annotations

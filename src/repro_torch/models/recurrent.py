@@ -28,6 +28,23 @@ from the matrix products' (``launch/profile_steps.py`` ``trace_prefill``).
 returns the same dict, as ``AttentionBlock.decode`` does; ``forward``
 returns a fresh state. Neither block reaches a kernel: the reference
 computes them in plain ``jnp``.
+
+The reference's sharding constraints stand where it puts them
+(``"rnn_act"``, ``"rwkv_act"``, ``"ffn"``, ``"residual"``). Inside a
+tensor-parallel step (``launch.shardings.sharded``'s ``"tp"`` route)
+each rank computes its own RG-LRU channels and its own RWKV-6 heads, as
+GSPMD splits the reference's blocks: the products run through
+``sh.einsum`` on the rules' weight shards (``wx``, ``wgate``, ``wr``,
+``wk``, ``wg`` and ``w_lora_b`` by columns; ``wo`` and the time mix's
+``wv`` by rows, giving partial sums that the next constraint reduces),
+and the conv, the gates and the scan, or the chunk loop and the per-head
+norm, run behind one ``sh.local_seam`` each on plain local tensors, so
+that the scan's passes and the chunks cost no DTensor dispatch. The
+RG-LRU gates contract over every channel: the seam gathers the conv's
+output whole for them (``sh.gather_shards``). ``decode`` keeps the state
+as the rules place it (``rnn_state``, ``cache_conv``, ``rwkv_state``
+split over ``model``; the token shifts whole) and each rank writes its
+own shard in place.
 """
 
 from __future__ import annotations
@@ -38,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from ..distributed import sharding as sh
 from .layers import _normal
 
 __all__ = ["LOGW_CLAMP", "RWKV_CHUNK", "RGLRUBlock", "RWKV6ChannelMix", "RWKV6TimeMix"]
@@ -54,7 +72,38 @@ def _uniform(gen, shape, dtype, device) -> torch.Tensor:
 def _shifted(x, shift):
     """x_prev: the previous token of each position, ``shift`` (B, D) before
     the first."""
-    return torch.cat([shift[:, None], x[:, :-1]], dim=1)
+    return torch.cat([sh.replicated(shift)[:, None], x[:, :-1]], dim=1)
+
+
+def _zeros_like_rows(x, d):
+    """The token shift before a sequence's first token: (B, d) zeros of
+    ``x``'s dtype, on its device."""
+    return torch.zeros((x.shape[0], d), dtype=x.dtype, device=x.device)
+
+
+def _split(d: int):
+    """Placements over the compute mesh (one axis) of a tensor split on
+    dim ``d``."""
+    from torch.distributed.tensor import Shard
+
+    return (Shard(d),)
+
+
+def _store(dst, src) -> None:
+    """``dst.copy_(src)``, in place. On a DTensor cache each rank writes
+    its own shard, ``src`` laid out as ``dst`` first; no rank gathers the
+    cache."""
+    if not hasattr(dst, "placements"):
+        dst.copy_(src)
+        return
+    src = sh.replicated(src)
+    dst.to_local().copy_(src.redistribute(dst.device_mesh, dst.placements).to_local())
+
+
+def _mm(eq: str, x, w):
+    """``x @ w`` over the last dim of ``x``; in a tensor-parallel step each
+    rank's part of it (``sh.einsum``)."""
+    return sh.einsum(eq, x, w, local=torch.matmul)
 
 
 # ------------------------------------------------------------------- RG-LRU
@@ -83,23 +132,27 @@ class RGLRUBlock:
             "wo": _normal(gen, lead + (r, d_model), stdr, dtype, device),
         }
 
-    def _gates(self, p, u):
-        """u: (B, S, R) post-conv → (log_a, gated input) in float32."""
-        r_g = torch.sigmoid(u @ p["wa"]).to(torch.float32)
-        i_g = torch.sigmoid(u @ p["wi"]).to(torch.float32)
-        log_a = -self.c * F.softplus(p["lam"]) * r_g                 # (B, S, R) < 0
+    def _gates(self, wa, wi, lam, u):
+        """u: (B, S, R) post-conv → (log_a, gated input) in float32. Behind
+        the seam ``u`` and ``lam`` are this rank's channels and ``wa``,
+        ``wi`` its columns: the products contract over every channel, so
+        they take ``u`` gathered whole."""
+        whole = sh.gather_shards(u, -1)
+        r_g = torch.sigmoid(whole @ wa).to(torch.float32)
+        i_g = torch.sigmoid(whole @ wi).to(torch.float32)
+        log_a = -self.c * F.softplus(lam) * r_g                      # (B, S, R) < 0
         beta = torch.sqrt(1.0 - torch.exp(2.0 * log_a) + 1e-9)
         b = beta * (i_g * u.to(torch.float32))
         return log_a, b
 
-    def _conv(self, p, u, carry=None):
+    def _conv(self, conv, u, carry=None):
         """Causal depthwise conv of width 4. carry: (B, w-1, R) previous inputs."""
         w = self.conv_width
         if carry is None:
             carry = torch.zeros((u.shape[0], w - 1, u.shape[-1]), dtype=u.dtype,
                                 device=u.device)
         ext = torch.cat([carry, u], dim=1)
-        out = sum(ext[:, i:i + u.shape[1]] * p["conv"][i] for i in range(w))
+        out = sum(ext[:, i:i + u.shape[1]] * conv[i] for i in range(w))
         return out, ext[:, -(w - 1):]
 
     @staticmethod
@@ -115,22 +168,35 @@ class RGLRUBlock:
             d *= 2
         return h
 
-    def forward(self, p, x, state=None):
-        """x: (B, S, D) → ((B, S, D), final state for decode)."""
-        u = x @ p["wx"]
-        g = F.gelu(x @ p["wgate"], approximate="tanh")   # jax.nn.gelu: the tanh form
-        h0 = None if state is None else state["h"]
-        conv_carry = None if state is None else state["conv"]
-        u, conv_out = self._conv(p, u, conv_carry)
-        log_a, b = self._gates(p, u)
+    def _recur(self, u, conv, wa, wi, lam, h0=None, carry=None):
+        """The conv, the gates and the scan on local tensors (behind the
+        seam, this rank's channels): u (B, S, R) = x @ wx → (h in u's
+        dtype, the conv's carry for decode)."""
+        dtype = u.dtype
+        u, conv_out = self._conv(conv, u, carry)
+        log_a, b = self._gates(wa, wi, lam, u)
         if h0 is not None:
             # Fold the incoming state into the first step: b_0 += a_0 * h0.
             b = torch.cat([b[:, :1] + torch.exp(log_a[:, :1]) * h0[:, None], b[:, 1:]], dim=1)
         # As the reference: h is cast to x's dtype before the final state is
         # taken from it (decode keeps h in float32).
         with record_function("rglru_scan"):
-            h = self._scan(log_a, b).to(x.dtype)
-        out = (g * h) @ p["wo"]
+            h = self._scan(log_a, b).to(dtype)
+        return h, conv_out
+
+    def forward(self, p, x, state=None):
+        """x: (B, S, D) → ((B, S, D), final state for decode)."""
+        x = sh.constrain(x, "residual_gathered")                 # the scan needs every position
+        u = sh.constrain(_mm("bsd,dr->bsr", x, p["wx"]), "rnn_act")
+        g = F.gelu(_mm("bsd,dr->bsr", x, p["wgate"]), approximate="tanh")  # jax.nn.gelu: tanh
+        args = [u, p["conv"], p["wa"], p["wi"], p["lam"]]
+        ins = ["rnn_act", "p_conv", "p_rnn_sq", "p_rnn_sq", "p_rnn_vec"]
+        if state is not None:
+            args += [state["h"], state["conv"]]
+            ins += ["rnn_state", "cache_conv"]
+        h, conv_out = sh.local_seam(self._recur, [_split(2), _split(2)], ins)(*args)
+        h = sh.constrain(h, "rnn_act")
+        out = sh.constrain(_mm("bsr,rd->bsd", g * h, p["wo"]), "residual")
         return out, {"h": h[:, -1].to(torch.float32), "conv": conv_out}
 
     # -------------------------------------------------------------- decode
@@ -142,17 +208,25 @@ class RGLRUBlock:
                                 device=device),
         }
 
+    def _step(self, u, conv, wa, wi, lam, h, carry):
+        """One decode step on local tensors: (h', the conv's carry')."""
+        u, carry = self._conv(conv, u, carry)
+        log_a, b = self._gates(wa, wi, lam, u)
+        return torch.exp(log_a[:, 0]) * h + b[:, 0], carry
+
     def decode(self, p, x, state):
         """x: (B, 1, D), one step; ``state`` updated in place and returned."""
-        u = x @ p["wx"]
-        g = F.gelu(x @ p["wgate"], approximate="tanh")
-        u, conv_carry = self._conv(p, u, state["conv"])
-        log_a, b = self._gates(p, u)
-        h = torch.exp(log_a[:, 0]) * state["h"] + b[:, 0]
-        out = (g[:, 0] * h.to(x.dtype)) @ p["wo"]
-        state["h"].copy_(h)
-        state["conv"].copy_(conv_carry)
-        return out[:, None], state
+        x = sh.constrain(x, "residual_gathered")
+        u = _mm("bsd,dr->bsr", x, p["wx"])
+        g = F.gelu(_mm("bsd,dr->bsr", x, p["wgate"]), approximate="tanh")
+        h, conv_carry = sh.local_seam(
+            self._step, [_split(1), _split(2)],
+            ["rnn_act", "p_conv", "p_rnn_sq", "p_rnn_sq", "p_rnn_vec", "rnn_state", "cache_conv"])(
+            u, p["conv"], p["wa"], p["wi"], p["lam"], state["h"], state["conv"])
+        out = _mm("br,rd->bd", g[:, 0] * h.to(x.dtype), p["wo"])
+        _store(state["h"], h)
+        _store(state["conv"], conv_carry)
+        return sh.constrain(out[:, None], "residual"), state
 
 
 # -------------------------------------------------------------------- RWKV6
@@ -187,7 +261,9 @@ class RWKV6TimeMix:
         }
 
     def _proj(self, p, x, x_prev):
-        """Token-shift lerp + projections. x, x_prev: (B, S, D)."""
+        """Token-shift lerp + projections. x, x_prev: (B, S, D) → r, k, v
+        (B, S, H, dh) on ``"rwkv_act"`` (a rank's heads), the decay's LoRA
+        and the gate (B, S, D) (a rank's channels)."""
         mu = p["mu"]
 
         def mix(i):
@@ -195,46 +271,63 @@ class RWKV6TimeMix:
 
         b, s, _ = x.shape
         h, dh = self.n_heads, self.d_head
-        r = (mix(0) @ p["wr"]).reshape(b, s, h, dh)
-        k = (mix(1) @ p["wk"]).reshape(b, s, h, dh)
-        v = (mix(2) @ p["wv"]).reshape(b, s, h, dh)
-        lora = torch.tanh(mix(3) @ p["w_lora_a"]) @ p["w_lora_b"]
-        logw = -torch.exp(p["lam"] + lora.to(torch.float32))
-        logw = torch.clamp(logw, -LOGW_CLAMP, -1e-6).reshape(b, s, h, dh)
-        g = F.silu(mix(4) @ p["wg"])
-        return r, k, v, logw, g
+        # wv maps to the rules' row split (p_ffn_out): v is a partial sum
+        # until its constraint, as in the reference's GSPMD program.
+        r, k, v = (sh.constrain(_mm("bsd,de->bse", mix(i), p[w]).reshape(b, s, h, dh),
+                                "rwkv_act") for i, w in enumerate(("wr", "wk", "wv")))
+        lora = _mm("bsl,le->bse", torch.tanh(_mm("bsd,dl->bsl", mix(3), p["w_lora_a"])),
+                   p["w_lora_b"])
+        g = F.silu(_mm("bsd,de->bse", mix(4), p["wg"]))
+        return r, k, v, lora, g
 
-    def _norm_out(self, p, y, g, b, s):
-        d = self.n_heads * self.d_head
-        y = y.reshape(b, s, self.n_heads, self.d_head)
-        # Per-head group norm; the population variance (jnp.var, ddof 0).
+    @staticmethod
+    def _logw(lam, lora, shape):
+        """The per-channel log decay, clamped, as (B, S, H, dh)."""
+        logw = -torch.exp(lam + lora.to(torch.float32))
+        return torch.clamp(logw, -LOGW_CLAMP, -1e-6).reshape(shape)
+
+    @staticmethod
+    def _norm_out(y, g, ln_w):
+        """Per-head group norm of y (B, S, H, dh), the population variance
+        (jnp.var, ddof 0), scaled by ``ln_w`` and gated by ``g`` (B, S,
+        H·dh). Behind the seam: this rank's heads and its part of ``ln_w``."""
+        b, s, h, dh = y.shape
         mean = y.mean(dim=-1, keepdim=True)
         var = y.var(dim=-1, keepdim=True, correction=0)
-        y = ((y - mean) * torch.rsqrt(var + 1e-5)).reshape(b, s, d)
-        y = y * p["ln_w"]
-        return (y.to(g.dtype) * g) @ p["wo"]
+        y = ((y - mean) * torch.rsqrt(var + 1e-5)).reshape(b, s, h * dh)
+        y = y * sh.own_part(ln_w, h * dh)
+        return y.to(g.dtype) * g
 
-    def forward(self, p, x, state=None):
-        """x: (B, S, D), S a multiple of min(RWKV_CHUNK, S). Returns (out, state)."""
-        b, s, d = x.shape
-        h, dh = self.n_heads, self.d_head
+    def _seam(self, fn, with_state: bool):
+        """``fn`` behind ``sh.local_seam``: its inputs r, k, v, the LoRA, the
+        gate, lam, u, ln_w (and the state) → (the output, on the rank's
+        channels; the state, on its heads). ln_w is whole on every rank,
+        which uses its own channels of it: its gradient is a partial sum."""
+        from torch.distributed.tensor import Partial
+
+        ins = ["rwkv_act"] * 3 + [_split(2)] * 2 + ["p_rnn_vec", "p_rwkv_u", "p_vec"]
+        grads = [None] * 7 + [(Partial(),)]
+        if with_state:
+            ins, grads = ins + ["rwkv_state"], grads + [None]
+        return sh.local_seam(fn, [_split(2), _split(1)], ins, grads)
+
+    def _chunks(self, r, k, v, lora, g, lam, u, ln_w, S=None):
+        """The chunk loop and the norm on local tensors (behind the seam,
+        this rank's heads): r, k, v (B, S, H, dh) → (the normed, gated
+        output (B, S, H·dh), the final state)."""
+        b, s, h, dh = r.shape
+        logw = self._logw(lam, lora, r.shape)
         L = min(RWKV_CHUNK, s)
-        if s % L:
-            raise ValueError(f"sequence length {s} is not a multiple of the chunk {L}")
-        shift = (state["shift_tm"] if state is not None
-                 else torch.zeros((b, d), dtype=x.dtype, device=x.device))
-        r, k, v, logw, g = self._proj(p, x, _shifted(x, shift))
         n_chunks = s // L
 
         def resh(t):  # (C, B, H, L, dh), chunk-major
             return t.reshape(b, n_chunks, L, h, dh).permute(1, 0, 3, 2, 4)
 
         rc, kc, vc, wc = resh(r), resh(k), resh(v), resh(logw)
-        S = (state["wkv"] if state is not None
-             else torch.zeros((b, h, dh, dh), dtype=torch.float32, device=x.device))
-        u = p["u"]                                            # (H, dh)
-        mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device), diagonal=-1)
-        eye = torch.eye(L, dtype=torch.float32, device=x.device)
+        if S is None:
+            S = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device)
+        mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=r.device), diagonal=-1)
+        eye = torch.eye(L, dtype=torch.float32, device=r.device)
         ys = []
         with record_function("rwkv6_chunks"):
             for c in range(n_chunks):
@@ -256,8 +349,22 @@ class RWKV6TimeMix:
                 S = torch.exp(cL.squeeze(2))[..., None] * S + torch.einsum(
                     "bhjd,bhje->bhde", k_hat, vf)
                 ys.append(y)
-        y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(b, s, h * dh)
-        out = self._norm_out(p, y, g, b, s)
+        y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(b, s, h, dh)
+        return self._norm_out(y, g, ln_w), S
+
+    def forward(self, p, x, state=None):
+        """x: (B, S, D), S a multiple of min(RWKV_CHUNK, S). Returns (out, state)."""
+        b, s, d = x.shape
+        L = min(RWKV_CHUNK, s)
+        if s % L:
+            raise ValueError(f"sequence length {s} is not a multiple of the chunk {L}")
+        x = sh.constrain(x, "residual_gathered")                 # the shift crosses positions
+        shift = state["shift_tm"] if state is not None else _zeros_like_rows(x, d)
+        args = [*self._proj(p, x, _shifted(x, shift)), p["lam"], p["u"], p["ln_w"]]
+        if state is not None:
+            args.append(state["wkv"])
+        y, S = self._seam(self._chunks, state is not None)(*args)
+        out = sh.constrain(_mm("bsd,de->bse", y, p["wo"]), "residual")
         return out, {"wkv": S, "shift_tm": x[:, -1]}
 
     # -------------------------------------------------------------- decode
@@ -269,25 +376,30 @@ class RWKV6TimeMix:
             "shift_tm": torch.zeros(lead + (batch, d_model), dtype=dtype, device=device),
         }
 
-    def decode(self, p, x, state):
-        """x: (B, 1, D), one step; ``state`` updated in place and returned."""
-        b, _, d = x.shape
-        h, dh = self.n_heads, self.d_head
-        r, k, v, logw, g = self._proj(p, x, state["shift_tm"][:, None])
+    def _step(self, r, k, v, lora, g, lam, u, ln_w, S):
+        """One decode step on local tensors: (the normed, gated output (B,
+        1, H·dh), the new state)."""
+        logw = self._logw(lam, lora, r.shape)
         rf = r[:, 0].to(torch.float32)                        # (B, H, dh)
         kf = k[:, 0].to(torch.float32)
         vf = v[:, 0].to(torch.float32)
         w = torch.exp(logw[:, 0])
-        S = state["wkv"]
-        u = p["u"]
         # y = r · (S + diag(u) k v^T); S' = diag(w) S + k v^T
         y = torch.einsum("bhd,bhde->bhe", rf, S)
         y = y + torch.einsum("bhd,bhd,bhe->bhe", rf, u[None] * kf, vf)
         S_new = w[..., None] * S + torch.einsum("bhd,bhe->bhde", kf, vf)
-        out = self._norm_out(p, y.reshape(b, 1, h * dh), g, b, 1)
-        state["wkv"].copy_(S_new)
-        state["shift_tm"].copy_(x[:, 0])
-        return out, state
+        return self._norm_out(y[:, None], g, ln_w), S_new
+
+    def decode(self, p, x, state):
+        """x: (B, 1, D), one step; ``state`` updated in place and returned."""
+        x = sh.constrain(x, "residual_gathered")
+        args = [*self._proj(p, x, state["shift_tm"][:, None]), p["lam"], p["u"], p["ln_w"],
+                state["wkv"]]
+        y, S_new = self._seam(self._step, True)(*args)
+        out = _mm("bsd,de->bse", y, p["wo"])
+        _store(state["wkv"], S_new)
+        _store(state["shift_tm"], x[:, 0])
+        return sh.constrain(out, "residual"), state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -306,16 +418,18 @@ class RWKV6ChannelMix:
         }
 
     def forward(self, p, x, state=None):
-        b, _, d = x.shape
-        shift = (state["shift_cm"] if state is not None
-                 else torch.zeros((b, d), dtype=x.dtype, device=x.device))
+        x = sh.constrain(x, "residual_gathered")
+        shift = state["shift_cm"] if state is not None else _zeros_like_rows(x, x.shape[-1])
         x_prev = _shifted(x, shift)
         mu = p["mu"]
         xk = x * mu[0] + x_prev * (1 - mu[0])
         xr = x * mu[1] + x_prev * (1 - mu[1])
-        k = torch.square(torch.relu(xk @ p["wk"]))
-        out = torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
-        return out, {"shift_cm": x[:, -1]}
+        k = torch.square(torch.relu(sh.constrain(_mm("bsd,df->bsf", xk, p["wk"]), "ffn")))
+        r = torch.sigmoid(_mm("bsd,de->bse", xr, p["wr"]))
+        # k @ wv is a partial sum over the rank's F columns; r is split over
+        # D by wr's columns: the sum is reduce-scattered onto r's split.
+        out = r * sh.laid_out_as(_mm("bsf,fd->bsd", k, p["wv"]), r)
+        return sh.constrain(out, "residual"), {"shift_cm": x[:, -1]}
 
     def init_state(self, batch, d_model, dtype, device, lead=()):
         return {"shift_cm": torch.zeros(tuple(lead) + (batch, d_model), dtype=dtype,
@@ -324,5 +438,5 @@ class RWKV6ChannelMix:
     def decode(self, p, x, state):
         """x: (B, 1, D); ``state`` updated in place and returned."""
         out, new_state = self.forward(p, x, state)
-        state["shift_cm"].copy_(new_state["shift_cm"])
+        _store(state["shift_cm"], new_state["shift_cm"])
         return out, state

@@ -30,7 +30,11 @@ vocabulary: each rank looks up its own rows (a partial sum, reduced into
 the residual's layout) and computes its own logits, and ``loss_fn``'s
 cross entropy reduces the row max, the sum of exponentials and the gold
 logit over the vocabulary shards without gathering the (B, S, V)
-logits.
+logits. Every block, attention, RG-LRU, RWKV-6 or channel mix, takes the
+residual as the step placed it and gives back its output on
+``"residual"``; the decode cache's recurrent states stay split as the
+rules place them, each rank writing its own shard. Under remat the
+recompute runs every seam again under the step's sharding state.
 """
 
 from __future__ import annotations

@@ -256,6 +256,29 @@ def test_share_counted_base_dequant(tmp_path):
     assert not lm._deq_base  # drained to zero → freed
 
 
+def test_iter_tensors_streams_in_order_on_threads(tmp_path):
+    """``iter_tensors`` on ``RECONSTRUCT_WORKERS`` threads, as a checkpoint
+    restore runs it, hands the tensors out in page order (or in the order
+    of the names it is given), each equal to ``tensor``'s and to the
+    one-thread stream's; a whole pass drains the shared bases as a
+    sequential one does."""
+    from repro_torch.core import loader
+
+    eng = StorageEngine(str(tmp_path), tau=10.0, device="cpu")
+    t = RNG.normal(0, 0.02, (32, 32)).astype(np.float32)
+    tensors = {f"w{i}": t + i * 1e-5 for i in range(2 * loader.RECONSTRUCT_WORKERS + 1)}
+    eng.save_model("m", {}, tensors)
+    lm = eng.load_model("m")
+    want = {n: lm.tensor(n) for n in lm.tensor_names()}
+    for workers in (1, loader.RECONSTRUCT_WORKERS):
+        got = list(lm.iter_tensors(workers=workers))
+        assert [n for n, _ in got] == lm.tensor_names()
+        assert all(np.array_equal(a, want[n]) for n, a in got)
+        assert not lm._deq_base
+    names = lm.tensor_names()[::-2]
+    assert [n for n, _ in lm.iter_tensors(names, loader.RECONSTRUCT_WORKERS)] == names
+
+
 def test_pipeline_loader(tmp_path):
     eng = StorageEngine(str(tmp_path), device="cpu")
     tensors = _mlp_tensors()

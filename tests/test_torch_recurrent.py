@@ -146,9 +146,8 @@ def test_rwkv6_norm_uses_the_population_variance():
     (``jnp.var``, ddof 0): a head whose values are (1, -1, ..., 1, -1)
     comes out unchanged, where the unbiased variance would shrink it."""
     blk = recurrent.RWKV6TimeMix(n_heads=1, d_head=4)
-    p = {"ln_w": torch.ones(4), "wo": torch.eye(4)}
     y = torch.tensor([[[1.0, -1.0, 1.0, -1.0]]])
-    out = blk._norm_out(p, y, torch.ones(1, 1, 4), 1, 1)
+    out = blk._norm_out(y.reshape(1, 1, 1, 4), torch.ones(1, 1, 4), torch.ones(4))
     np.testing.assert_allclose(out.numpy(), y.numpy() / np.sqrt(1 + 1e-5), rtol=1e-6)
 
 

@@ -2,11 +2,12 @@
 ``launch.shardings.sharded``, on the CPU.
 
 Spawned gloo ranks (over a ``FileStore``, each join bounded) on (1, 2) and
-(2, 2) ("data", "model") meshes run the dense smoke models' train,
-prefill and serve steps under the ``"tp"`` rule tables: the weights stay
-split over ``model`` as DTensors, the activations are DTensors over the
-``model`` submesh and each rank computes its heads, FFN columns and
-vocabulary columns. Held here:
+(2, 2) ("data", "model") meshes run the dense and recurrent smoke models'
+train, prefill and serve steps under the ``"tp"`` rule tables: the
+weights stay split over ``model`` as DTensors, the activations are
+DTensors over the ``model`` submesh and each rank computes its heads, FFN
+columns and vocabulary columns, its RG-LRU channels and its RWKV-6 heads.
+Held here:
 
 * the route is ``"tp"``, and the train step's losses within ``DP4_TOL``
   of the unsharded step with one microbatch a data-parallel rank, its
@@ -21,19 +22,24 @@ vocabulary columns. Held here:
   tokens against the unsharded ones, under the serving table (``d_head``
   split over ``model``) and the train table (heads, or the sequence of the
   cache where the KV heads do not divide the axis);
-* four configs: internlm2-1.8b's smoke size and the same with a
+* six configs: internlm2-1.8b's smoke size and the same with a
   vocabulary that does not divide the axis, a glm4-like one with fewer KV
-  heads than ``model`` ranks (each rank's query heads on one KV head) and
-  one whose ranks' query heads straddle their KV heads;
+  heads than ``model`` ranks (each rank's query heads on one KV head), one
+  whose ranks' query heads straddle their KV heads, and recurrentgemma-9b's
+  and rwkv6-7b's smoke sizes (trained at ``RECURRENT_SEQ``'s lengths);
 * no all-gather over the ``model`` group inside a step has the shape of a
   weight split over ``model`` (read from the recorded collectives, which
   do show such gathers on the gathered route);
 * each rank's matmul FLOPs (``FlopCounterMode``) in a train step at (1, 2)
-  are at most ``FLOP_SHARE`` of the unsharded step's;
-* the route each config takes (``compute_route``: the recurrent and MoE
-  models keep the gathered one), and the dry run of internlm2-1.8b ×
-  decode_32k on the route: its useful-FLOP ratio and all-gather bytes
-  against the gathered route's.
+  are at most ``FLOP_SHARE`` of the unsharded step's, for internlm2 and
+  the two recurrent models;
+* the DTensor ops a recurrent model's forward dispatches do not grow with
+  the sequence (the RWKV-6 chunk loop and the RG-LRU scan's passes run on
+  local tensors behind their seams);
+* the route each config takes (``compute_route``: the MoE models keep the
+  gathered one), and the dry run of internlm2-1.8b, recurrentgemma-9b and
+  rwkv6-7b × decode_32k on the route: their useful-FLOP ratios and
+  all-gather bytes against the gathered route's.
 """
 
 import contextlib
@@ -68,6 +74,17 @@ MESH_SHAPES = [(1, 2), (2, 2)]
 # SEQ: the residual's gather over ``model`` at (2, 2), (2 · 2 rows, 24 / 2,
 # 64), has no weight's gathered shape (at 32 it would be wo's, (4, 16, 64)).
 TRAIN_STEPS, SERVE_STEPS, BATCH, SEQ, PROMPT, CACHE_LEN = 2, 4, 4, 24, 8, 16
+# The recurrent models' train lengths (SEQ is one RWKV-6 chunk and barely
+# past recurrentgemma-smoke's 16-token window): recurrentgemma's four
+# windows, rwkv6's three chunks of 32. rwkv6's is not 64: at (2, 2) the
+# residual's gather over ``model``, (2 · 2 rows, 64 / 2, 64), and the
+# channel mix's move from its D split to the sequence split (an
+# all-gather on gloo, (4, 64, 64 / 2)) would have the gathered shapes of
+# its two stacked periods of wv and wr.
+RECURRENT_SEQ = {"recurrentgemma-smoke": 64, "rwkv6-smoke": 96}
+# The lengths of the forwards whose DTensor ops are counted: 2 and 4
+# RWKV-6 chunks, 6 and 7 RG-LRU scan passes.
+OP_COUNT_SEQS = (64, 128)
 # Two data-parallel ranks against two microbatches, and a model axis of two
 # against one rank's products: the partial sums add in another order, and
 # two AdamW steps carry the difference into the parameters and moments
@@ -119,12 +136,27 @@ def _configs() -> dict:
         # head and the logits stay whole over ``model``.
         "internlm2_v255": dataclasses.replace(get_config("internlm2-1.8b", smoke=True),
                                               vocab_size=255),
+        # 64 RG-LRU channels, 4 query heads on 1 KV head, window 16.
+        "recurrentgemma": get_config("recurrentgemma-9b", smoke=True),
+        # 4 RWKV-6 heads of 16.
+        "rwkv6": get_config("rwkv6-7b", smoke=True),
     }
 
 
-def _batches(cfg, n):
+# The configs held to the reference's losses and counted for FLOPs: the
+# reference's config each stands for.
+ARCHS = {"internlm2": "internlm2-1.8b", "recurrentgemma": "recurrentgemma-9b",
+         "rwkv6": "rwkv6-7b"}
+RECURRENT = ("recurrentgemma", "rwkv6")
+
+
+def _seq(cfg) -> int:
+    return RECURRENT_SEQ.get(cfg.name, SEQ)
+
+
+def _batches(cfg, n, seq=None):
     data = SyntheticLM(cfg.vocab_size, seed=3)
-    return [{k: torch.from_numpy(v) for k, v in data.batch(i, BATCH, SEQ).items()}
+    return [{k: torch.from_numpy(v) for k, v in data.batch(i, BATCH, seq or _seq(cfg)).items()}
             for i in range(n)]
 
 
@@ -204,11 +236,14 @@ def _worker(rank, shape, store_path, out_dir):
             res["train"] = {"route": step.route, "losses": losses, "states": states,
                             "bad_gathers": [g for g in _model_gathers(rec, model_ranks)
                                             if g in split_shapes]}
-            if name == "internlm2" and shape == (1, 2):
+            if name in ARCHS and shape == (1, 2):
                 b = _batches(cfg, 1)[0]
                 with FlopCounterMode(display=False) as flops:
                     step(p, o, b)
                 res["flops"] = flops.get_total_flops()
+            if name in RECURRENT and shape == (1, 2):
+                res["dtensor_ops"] = _forward_dtensor_ops(cfg, p, p_spec, mesh)
+            if name == "internlm2" and shape == (1, 2):
                 # The check's own control: the same step on the gathered
                 # route gathers the split weights over ``model``.
                 with sh.use_mesh(mesh) as ctx:
@@ -264,6 +299,23 @@ def _worker(rank, shape, store_path, out_dir):
         torch.save(out, os.path.join(out_dir, f"r{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def _forward_dtensor_ops(cfg, params, p_spec, mesh) -> dict:
+    """{sequence length: the DTensor ops a sharded prefill (a forward)
+    dispatches} at each of ``OP_COUNT_SEQS``, under the train table."""
+    out = {}
+    for seq in OP_COUNT_SEQS:
+        tokens = _batches(cfg, 1, seq)[0]["tokens"]
+        with sh.use_mesh(mesh) as ctx:
+            rows = shd.per_batch(shd.batch_specs_tree({"tokens": tokens}, ctx))
+            prefill = shd.sharded(make_prefill_step(cfg), (p_spec, rows),
+                                  (shd.per_batch(None),), ctx, cfg=cfg)
+        rec = StepRecorder()
+        with rec:
+            prefill(params, {"tokens": tokens})
+        out[seq] = sum(rec.dtensor_ops.values())
+    return out
 
 
 def _recorders(sub) -> dict:
@@ -333,12 +385,14 @@ def _direction(m, v, t: int):
     return (m / (1 - B1 ** t)) / ((v / (1 - B2 ** t)).clamp_min(0).sqrt() + EPS)
 
 
-def adam_state_gaps(got: list, want: list, lr: float, tol: dict) -> tuple[list, list]:
+def adam_state_gaps(got: list, want: list, lr: float, tol: dict,
+                    first_rtol: float = GRAD_RTOL) -> tuple[list, list]:
     """A train run's [params, AdamW state] after each of its steps
     (``got``: trees of whole tensors) against the unsharded run's
-    (``want``), by the rule above GRAD_RTOL: (a line for each fault, a line
-    a leaf of what was seen). Each leaf of ``got`` is moved to ``want``'s
-    device in turn."""
+    (``want``), by the rule above GRAD_RTOL (the first step's moments
+    within ``first_rtol``): (a line for each fault, a line a leaf of what
+    was seen). Each leaf of ``got`` is moved to ``want``'s device in
+    turn."""
     assert len(got) == len(want)
     bad, seen = [], []
     moments = [[[tree_leaves(opt[k]) for k in ("m", "v")] for _, opt in run]
@@ -349,7 +403,7 @@ def adam_state_gaps(got: list, want: list, lr: float, tol: dict) -> tuple[list, 
         for t in range(1, len(want) + 1):
             (gm, gv), (wm, wv) = ([x[i].to(b.device).double() for x in run[t - 1]]
                                   for run in moments)
-            m_rtol = GRAD_RTOL if t == 1 else LATER_RTOL
+            m_rtol = first_rtol if t == 1 else LATER_RTOL
             for k, (x, y, rtol) in enumerate(((gm, wm, m_rtol), (gv, wv, 2 * m_rtol))):
                 err = _rel_l2(x, y)
                 worst[k] = max(worst[k], err)
@@ -407,9 +461,9 @@ def test_train_step_is_the_unsharded_step(ranks, shape, name):
 
 @pytest.mark.parametrize("shape", MESH_SHAPES)
 def test_train_losses_are_the_references(ranks, shape):
-    """internlm2's losses split over ``model`` within ``LOSS_RTOL`` of the
-    reference's unsharded step (JAX, a microbatch a data-parallel rank) on
-    the same weights and batches."""
+    """internlm2's, recurrentgemma's and rwkv6's losses split over
+    ``model`` within ``LOSS_RTOL`` of the reference's unsharded step (JAX,
+    a microbatch a data-parallel rank) on the same weights and batches."""
     import jax
     import jax.numpy as jnp
 
@@ -417,14 +471,15 @@ def test_train_losses_are_the_references(ranks, shape):
     from repro.launch.steps import make_train_step as r_make_train_step
     from repro.optim import adamw_init as r_adamw_init
 
-    r_step = jax.jit(r_make_train_step(r_get_config("internlm2-1.8b", smoke=True), shape[0],
-                                       lr=LR))
-    p = tree_map(lambda x: x.numpy(), ranks["weights"]["internlm2"])
-    o = r_adamw_init(p)
-    got = ranks[shape][0]["internlm2"]["train"]["losses"]
-    for b, loss in zip(_batches(get_config("internlm2-1.8b", smoke=True), TRAIN_STEPS), got):
-        p, o, m = r_step(p, o, {k: jnp.asarray(v.numpy()) for k, v in b.items()})
-        np.testing.assert_allclose(float(loss), float(m["loss"]), rtol=LOSS_RTOL)
+    for name, arch in ARCHS.items():
+        r_step = jax.jit(r_make_train_step(r_get_config(arch, smoke=True), shape[0], lr=LR))
+        p = tree_map(lambda x: x.numpy(), ranks["weights"][name])
+        o = r_adamw_init(p)
+        got = ranks[shape][0][name]["train"]["losses"]
+        for b, loss in zip(_batches(_configs()[name], TRAIN_STEPS), got, strict=True):
+            p, o, m = r_step(p, o, {k: jnp.asarray(v.numpy()) for k, v in b.items()})
+            np.testing.assert_allclose(float(loss), float(m["loss"]), rtol=LOSS_RTOL,
+                                       err_msg=name)
 
 
 @pytest.mark.parametrize("serve_rules", [True, False])
@@ -476,16 +531,32 @@ def test_no_split_weight_is_gathered_over_model(ranks, shape):
 
 
 def test_each_rank_does_its_share_of_the_matmuls(ranks):
-    """At (1, 2) each rank's matmul FLOPs in a train step are at most
-    ``FLOP_SHARE`` of the unsharded step's on the same batch."""
-    cfg = _configs()["internlm2"]
-    params = ranks["weights"]["internlm2"]
-    plain = make_train_step(cfg, 1, lr=LR)
-    with FlopCounterMode(display=False) as flops:
-        plain(params, adamw_init(params), _batches(cfg, 1)[0])
-    whole = flops.get_total_flops()
+    """At (1, 2) each rank's matmul FLOPs in a train step of internlm2,
+    recurrentgemma and rwkv6 are at most ``FLOP_SHARE`` of the unsharded
+    step's on the same batch: the projections, the RG-LRU gates and the
+    RWKV-6 chunk products split too (what every rank repeats: RWKV-6's
+    decay LoRA down-projection)."""
+    for name in ARCHS:
+        cfg = _configs()[name]
+        params = ranks["weights"][name]
+        plain = make_train_step(cfg, 1, lr=LR)
+        with FlopCounterMode(display=False) as flops:
+            plain(params, adamw_init(params), _batches(cfg, 1)[0])
+        whole = flops.get_total_flops()
+        for r in ranks[(1, 2)]:
+            assert 0 < r[name]["flops"] <= FLOP_SHARE * whole, (name, r[name]["flops"], whole)
+
+
+@pytest.mark.parametrize("name", RECURRENT)
+def test_recurrent_dtensor_ops_do_not_grow_with_the_sequence(ranks, name):
+    """A recurrent model's sharded forward at (1, 2) dispatches as many
+    DTensor ops at 128 tokens as at 64: RWKV-6's chunk loop (4 chunks
+    against 2) and the RG-LRU scan's passes (7 against 6) run on local
+    tensors behind their seams."""
     for r in ranks[(1, 2)]:
-        assert 0 < r["internlm2"]["flops"] <= FLOP_SHARE * whole, (r["internlm2"]["flops"], whole)
+        counts = r[name]["dtensor_ops"]
+        assert counts[OP_COUNT_SEQS[0]] > 0
+        assert counts[OP_COUNT_SEQS[1]] == counts[OP_COUNT_SEQS[0]], counts
 
 
 class _StandIn:
@@ -496,13 +567,13 @@ class _StandIn:
         self.devices = np.empty(shape, dtype=object)
 
 
-GATHERED_ARCHS = {"recurrentgemma-9b", "rwkv6-7b", "granite-moe-3b-a800m", "arctic-480b"}
+GATHERED_ARCHS = {"granite-moe-3b-a800m", "arctic-480b"}
 
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_each_config_takes_its_route(arch):
-    """Dense models split over a ``model`` axis of more than one rank
-    under the ``"tp"`` tables; the recurrent and MoE models, the ``"dp"``
+    """Dense and recurrent models split over a ``model`` axis of more than
+    one rank under the ``"tp"`` tables; the MoE models, the ``"dp"``
     table, a step with no config and a ``model`` axis of one rank keep the
     gathered route. Asked for, ``"tp"`` is taken at one rank too, and
     refused where the default would not split but for the axis' size."""
@@ -526,6 +597,20 @@ def test_each_config_takes_its_route(arch):
             shd.compute_route(ctx, cfg, "tp")
 
 
+def test_recurrent_widths_that_do_not_divide_model_are_refused():
+    """The tp route of a config whose RG-LRU channels or RWKV-6 heads do
+    not divide the ``model`` axis raises (its scans are not quietly
+    gathered); the gathered route stays open."""
+    cases = {"recurrentgemma-9b": dataclasses.replace(get_config("recurrentgemma-9b"),
+                                                      d_rnn=4095),
+             "rwkv6-7b": dataclasses.replace(get_config("rwkv6-7b"), d_model=4032)}
+    for arch, cfg in cases.items():
+        with sh.use_mesh(_StandIn((16, 16), ("data", "model"))) as ctx:
+            with pytest.raises(ValueError, match="do not divide"):
+                shd.compute_route(ctx, cfg)
+            assert shd.compute_route(ctx, cfg, "gathered") == "gathered", arch
+
+
 # The gathered route's dry run of internlm2-1.8b × decode_32k, single pod,
 # "tp" rules (each rank gathering every weight and running the whole
 # model on its rows): its useful-FLOP ratio and its all-gather bytes a
@@ -533,23 +618,46 @@ def test_each_config_takes_its_route(arch):
 GATHERED_DECODE_RATIO, GATHERED_DECODE_ALL_GATHER = 0.024, 27.70e9
 
 
-def test_dryrun_decode_cell_on_the_tp_route():
-    """The dry run (its own process: it takes the default group) of
-    internlm2-1.8b × decode_32k and granite's: the dense cell on the
-    ``"tp"`` route with at least 4x the gathered route's useful-FLOP ratio
-    and less all-gather; granite's on the gathered route."""
-    code = ("import json; from repro_torch.launch import dryrun; print(json.dumps(["
-            "dryrun.run_cell(a, 'decode_32k', False, verbose=False) "
-            "for a in ('internlm2-1.8b', 'granite-moe-3b-a800m')]))")
+def _dryrun_decode_cells(archs) -> list[dict]:
+    """The dry run's decode_32k records of ``archs`` (single pod, "tp"
+    rules), in a process of its own: it takes the default group."""
+    code = ("import json, sys; from repro_torch.launch import dryrun; print(json.dumps(["
+            "dryrun.run_cell(a, 'decode_32k', False, verbose=False) for a in sys.argv[1:]]))")
     repo = Path(__file__).resolve().parents[1]
     env = {"PYTHONPATH": str(repo / "src"), "PATH": os.environ.get("PATH", "/usr/bin:/bin")}
-    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=repo, capture_output=True,
-                          text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", code, *archs], env=env, cwd=repo,
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    dense, moe = json.loads(proc.stdout.strip().splitlines()[-1])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_dryrun_decode_cell_on_the_tp_route():
+    """The dry run of internlm2-1.8b × decode_32k and granite's: the dense
+    cell on the ``"tp"`` route with at least 4x the gathered route's
+    useful-FLOP ratio and less all-gather; granite's on the gathered
+    route."""
+    dense, moe = _dryrun_decode_cells(("internlm2-1.8b", "granite-moe-3b-a800m"))
     assert dense["route"] == "tp" and moe["route"] == "gathered"
     assert dense["useful_flops_ratio"] >= 4 * GATHERED_DECODE_RATIO
     assert dense["collectives"]["all-gather"] < GATHERED_DECODE_ALL_GATHER
+
+
+# The same for the recurrent models, from the dry run before their blocks
+# were split (each rank gathering every weight and scanning every channel
+# and head): (useful-FLOP ratio, all-gather bytes a device a step).
+GATHERED_RECURRENT_DECODE = {"recurrentgemma-9b": (0.068, 19.78e9),
+                             "rwkv6-7b": (0.065, 14.36e9)}
+
+
+def test_dryrun_recurrent_decode_cells_on_the_tp_route():
+    """The dry run of recurrentgemma-9b and rwkv6-7b × decode_32k: on the
+    ``"tp"`` route, each with a higher useful-FLOP ratio and less
+    all-gather than its gathered route's."""
+    cells = _dryrun_decode_cells(tuple(GATHERED_RECURRENT_DECODE))
+    for rec, (ratio, gathered) in zip(cells, GATHERED_RECURRENT_DECODE.values(), strict=True):
+        assert rec["route"] == "tp", rec["arch"]
+        assert rec["useful_flops_ratio"] > ratio, rec["arch"]
+        assert rec["collectives"]["all-gather"] < gathered, rec["arch"]
 
 
 def test_recorders_see_each_ranks_local_ops(ranks):

@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -281,25 +282,61 @@ def test_nstat_embedded_space_as_the_reference(template, tmp_path, capsys):
     assert got.startswith("[store]  models=3")
 
 
+# How long a scrape waits for the server to count the requests before it.
+COUNTED_DEADLINE_S = 5.0
+METRICS = ("GET", "metrics", "2xx")
+
+
+def _request_counts() -> dict:
+    """The in-process registry's ``neurstore_server_requests_total``, by
+    (method, route, status class): process-wide, so it holds the requests
+    of every server this process has run."""
+    from repro_torch.obs.metrics import default_registry, parse_prometheus_text
+
+    fam = parse_prometheus_text(default_registry().render()).get(
+        "neurstore_server_requests_total", {"samples": []})
+    return {(s["labels"]["method"], s["labels"]["route"], s["labels"]["status"]): s["value"]
+            for s in fam["samples"]}
+
+
+def _await_counted(want: float) -> None:
+    """Wait until the server has counted ``want`` metrics scrapes: its
+    handler counts a request after it has written the answer, so a client
+    can read a whole scrape and send the next before the first is
+    counted."""
+    deadline = time.monotonic() + COUNTED_DEADLINE_S
+    while _request_counts().get(METRICS, 0.0) < want:
+        assert time.monotonic() < deadline, (
+            f"the server counted {_request_counts().get(METRICS, 0.0)} metrics scrapes of "
+            f"{want} after {COUNTED_DEADLINE_S} s")
+        time.sleep(0.01)
+
+
 def test_nstat_scrapes_a_port_server(template, tmp_path, capsys):
     """``--url`` against the port's server: the request counters it renders
     are the requests made (one scrape before, so the scrape's own request
-    is not yet counted)."""
+    is not yet counted), beside what this process's earlier servers
+    counted. Each scrape waits until the server has counted the scrapes
+    before it."""
     root = str(tmp_path / "store")
     shutil.copytree(template[0], root)
     eng = T.StorageEngine(root, device="cpu")
     server = ModelStoreServer(eng, port=0).start()
     try:
         url = f"http://{server.host}:{server.port}"
+        want = _request_counts()
         assert port_nstat.main(["--url", url, "--device", "cpu"]) == 0
         out = capsys.readouterr().out
         assert "families" in out.splitlines()[0] and "[engine]" in out
+        want[METRICS] = want.get(METRICS, 0.0) + 1
+        _await_counted(want[METRICS])
         assert port_nstat.main(["--url", url, "--device", "cpu"]) == 0
         out = capsys.readouterr().out
-        line = [ln for ln in out.splitlines()
-                if ln.startswith("  neurstore_server_requests_total{")]
-        assert line == ["  neurstore_server_requests_total"
-                        "{method=GET,route=metrics,status=2xx} = 1"]
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("  neurstore_server_requests_total{")]
+        assert lines == [f"  neurstore_server_requests_total{{method={m},route={r},status={s}}}"
+                         f" = {v:.0f}" for (m, r, s), v in sorted(want.items())]
+        _await_counted(want[METRICS] + 1)
         assert port_nstat.main(["--url", url, "--space", "--device", "cpu"]) == 0
         assert capsys.readouterr().out.startswith("[store]  models=3")
     finally:
