@@ -184,13 +184,22 @@ in a row is taken with CUDA events behind a spin kernel instead
    gathered route, in turns, each route's median ms printed. (d) The
    recurrent models on the (1, 1) mesh under ``"tp"``, on both routes in
    turns: recurrentgemma-9b at one period (rglru, rglru, local_attn) and
-   rwkv6-7b at 2 layers, bf16, remat, 2 train steps on 4 x 2048 batches
+   rwkv6-7b at 1 layer, bf16, remat, 2 train steps on 4 x 2048 batches
    (the vocabulary cut to ``POD_RECURRENT_TRAIN_VOCAB``), the 4 x 512
    prefill and 16 serve steps, each step's loss, params and moments and
    the final cache held to the unsharded path's by a digest of each
    leaf's bits, the prefill logits and tokens bit for bit;
    recurrentgemma's bf16 dh-256 ``flash_attention`` launches counted, on
-   the tp route every one through the seam. (c)
+   the tp route every one through the seam. (e) granite-moe-3b-a800m at its
+   published widths cut to 2 layers (40 experts of d_ff 512, top 8, 24
+   heads on 8 KV heads of 64, vocab 49,155; bf16, remat, its capacity
+   factor 1.25, so that pairs are dropped, the dropped pairs of a train
+   batch and of the prompts printed) the same way: on the tp route the
+   experts stay split over ``data`` and the tokens cross it by
+   ``sh.expert_exchange`` (an all-to-all over a group of one rank here,
+   every call counted: 2 a MoE layer a forward), the expert hidden over
+   ``model``; its bf16 dh-64 ``flash_attention`` launches counted, on the
+   tp route every one through the seam. (c)
    ``launch.train.restore_sharded`` of a smoke-size checkpoint
    the phase writes, every placed leaf bit-identical to the unsharded
    restore. Its seconds beside ``POD_BUDGET_S``.
@@ -350,8 +359,9 @@ POD_BUDGET_S = 45.0
 # Phase 12 (d): the recurrent models at their widths on the (1, 1) mesh under
 # the "tp" table, bf16, remat: recurrentgemma-9b at one period (rglru, rglru,
 # local_attn; no tail: d_rnn 4096, 16 heads of 256 on 1 KV head, window
-# 2048, d_ff 12,288, vocab 256,000) and rwkv6-7b at 2 layers (64 heads of
-# 64, d_ff 14,336, vocab 65,536); POD_RECURRENT_STEPS train steps on 4 x 2048
+# 2048, d_ff 12,288, vocab 256,000) and rwkv6-7b at 1 layer (64 heads of
+# 64, d_ff 14,336, vocab 65,536; 2 layers until granite's cell, (e), took
+# the time of its second); POD_RECURRENT_STEPS train steps on 4 x 2048
 # batches and the serve path of (b), on both routes in POD_TURNS turns. The
 # train steps cut the vocabulary to POD_RECURRENT_TRAIN_VOCAB: at 256,000
 # the embedding and the head are 2.1 B of recurrentgemma's 2.75 B
@@ -360,8 +370,16 @@ POD_BUDGET_S = 45.0
 # held by each leaf's digest (_digest): two of them, beside a step's own,
 # do not fit on the card.
 POD_RECURRENT = {"recurrentgemma-9b": dict(n_layers=3, tail=(), tail_mix=()),
-                 "rwkv6-7b": dict(n_layers=2)}
+                 "rwkv6-7b": dict(n_layers=1)}
 POD_RECURRENT_STEPS, POD_RECURRENT_TRAIN_VOCAB = 2, 65_536
+# Phase 12 (e): granite-moe-3b-a800m at its widths cut to 2 layers, as (d)
+# runs the recurrent models (bf16, remat, its default capacity factor 1.25,
+# which drops pairs). Each arch's attention launches are read from its
+# launch_counts() key.
+POD_MOE = {"granite-moe-3b-a800m": dict(n_layers=2)}
+POD_LAUNCH_KEY = {"recurrentgemma-9b": "flash_attention_bfloat16_dh256",
+                  "rwkv6-7b": "flash_attention_bfloat16_dh256",
+                  "granite-moe-3b-a800m": "flash_attention_bfloat16"}
 # Phase 10 (the model zoo): (batch, prompt length) of each prefill, and
 # arctic-480b's depth: its 35 layers (477 B parameters) cannot be held on
 # one card; one layer's 128 experts and dense residual are 14.07 B (28.1 GB
@@ -3191,13 +3209,14 @@ def _digest(tree) -> list[tuple[int, int]]:
     return out
 
 
-def _pod_recurrent(dev, mesh, seam: dict, route_ms: dict) -> None:
-    """Phase 12 (d): the recurrent models' train steps and serve path on
-    ``mesh`` (one rank) under the "tp" table, on the tp route (asked for by
-    name) and the gathered one in turns, each held to the unsharded path's
-    bits; recurrentgemma's local attention launches at head dim 256
+def _pod_models(dev, mesh, seam: dict, route_ms: dict, models: dict, part: str) -> None:
+    """Phase 12 (d) and (e): the recurrent models' and the routed experts'
+    train steps and serve path on ``mesh`` (one rank) under the "tp"
+    table, on the tp route (asked for by name) and the gathered one in
+    turns, each held to the unsharded path's bits; the attention launches
     (forward and remat's recompute) counted, on the tp route all through
-    the seam."""
+    the seam, and a MoE model's expert exchanges (``sh.exchange_counts``,
+    on the tp route alone: 2 a MoE layer a forward)."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.distributed import sharding as sh
@@ -3208,27 +3227,33 @@ def _pod_recurrent(dev, mesh, seam: dict, route_ms: dict) -> None:
     from repro_torch.optim import adamw_init
 
     b = POD_PREFILL[0]
-    for arch, cut in POD_RECURRENT.items():
+    for arch, cut in models.items():
         cfg = dataclasses.replace(get_config(arch), **cut)
         tcfg = dataclasses.replace(cfg, vocab_size=min(cfg.vocab_size,
                                                        POD_RECURRENT_TRAIN_VOCAB))
-        attn = sum(kind == "local_attn" for kind in cfg.period) * cfg.n_periods
-        log(f"pod mesh (d) {arch}: {cfg.n_layers} layers {cfg.period}, d_model {cfg.d_model}, "
-            f"d_rnn {cfg.d_rnn}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} ({tcfg.vocab_size} in "
-            f"the train steps), {cfg.param_dtype}, remat {cfg.remat}; {POD_RECURRENT_STEPS} "
+        attn = (sum(kind in ("attn", "local_attn") for kind in cfg.period) * cfg.n_periods
+                + sum(kind in ("attn", "local_attn") for kind in cfg.tail))
+        moe = sum(kind in ("moe", "moe_dense") for kind in cfg.mix) * cfg.n_periods
+        key = POD_LAUNCH_KEY[arch]
+        log(f"pod mesh ({part}) {arch}: {cfg.n_layers} layers {cfg.period} {cfg.mix}, d_model "
+            f"{cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} KV heads of {cfg.d_head}, "
+            f"d_rnn {cfg.d_rnn}, d_ff {cfg.d_ff}, {cfg.n_experts} experts top {cfg.top_k} at "
+            f"capacity factor {cfg.capacity_factor}, vocab {cfg.vocab_size} ({tcfg.vocab_size} "
+            f"in the train steps), {cfg.param_dtype}, remat {cfg.remat}; {POD_RECURRENT_STEPS} "
             f"train steps at {TRAIN_BATCH} x {TRAIN_LEN}, a {POD_PREFILL[0]} x "
             f"{POD_PREFILL[1]} prefill and {STEPS} serve steps, on the tp and gathered routes "
-            f"in {POD_TURNS} turns")
+            f"in {POD_TURNS} turns; attention launches read from {key}")
 
         def counted(run):
-            """``run()``'s result, the dh-256 launches and the calls through
-            the seam it made."""
-            before, calls = ops.launch_counts()["flash_attention_bfloat16_dh256"], seam["calls"]
+            """``run()``'s result, the attention launches, the calls through
+            the seam and the expert exchanges it made."""
+            before, calls = ops.launch_counts()[key], seam["calls"]
+            sh.reset_exchange_counts()
             out = run()
-            return (out, ops.launch_counts()["flash_attention_bfloat16_dh256"] - before,
-                    seam["calls"] - calls)
+            return (out, ops.launch_counts()[key] - before, seam["calls"] - calls,
+                    sh.exchange_counts()["calls"])
 
-        # (d1) the train steps
+        # (1) the train steps
         data = SyntheticLM(tcfg.vocab_size, seed=SEED + 12)
         batches = [{k: torch.from_numpy(v).to(dev) for k, v in
                     data.batch(i, TRAIN_BATCH, TRAIN_LEN).items()}
@@ -3253,14 +3278,21 @@ def _pod_recurrent(dev, mesh, seam: dict, route_ms: dict) -> None:
         # The unsharded steps, twice: bit-identity below presumes a step that
         # repeats its own bits.
         plain = make_train_step(tcfg, 1, lr=TRAIN_LR)
-        (want, plain_ms, plain_peak), want_launched, _ = counted(lambda: train(plain))
+        (want, plain_ms, plain_peak), want_launched, _, _ = counted(lambda: train(plain))
         repeats = train(plain)[0] == want
-        log(f"pod mesh (d1) {arch}: unsharded train steps {[round(t, 3) for t in plain_ms]} ms, "
-            f"losses {[round(loss, 6) for loss, _ in want]}, peak {plain_peak} bytes, "
-            f"{want_launched} dh-256 launches; a second run bit-identical {repeats}")
+        drops = ""
+        if moe:
+            dropped, routed = _zoo_dropped(tcfg, params0, batches[0]["tokens"])
+            drops = (f"; capacity factor {cfg.capacity_factor} dropped {dropped} of {routed} "
+                     f"routed (token, expert) pairs of the first batch ({dropped / routed:.6f})")
+        log(f"pod mesh ({part}1) {arch}: unsharded train steps {[round(t, 3) for t in plain_ms]} "
+            f"ms, losses {[round(loss, 6) for loss, _ in want]}, peak {plain_peak} bytes, "
+            f"{want_launched} attention launches; a second run bit-identical {repeats}{drops}")
         if not repeats or want_launched != 2 * attn * POD_RECURRENT_STEPS:
-            fail(f"pod mesh (d1) {arch}: the unsharded step repeats its bits {repeats}, "
-                 f"{want_launched} dh-256 launches (want {2 * attn * POD_RECURRENT_STEPS})")
+            fail(f"pod mesh ({part}1) {arch}: the unsharded step repeats its bits {repeats}, "
+                 f"{want_launched} attention launches (want {2 * attn * POD_RECURRENT_STEPS})")
+        # The forward and remat's recompute: 2 exchanges a MoE layer each.
+        train_exchanges = 2 * moe * (2 if tcfg.remat else 1) * POD_RECURRENT_STEPS
         with sh.use_mesh(mesh) as ctx:
             p_spec = shd.param_specs_tree(params0, ctx)
             o_spec = shd.opt_specs_tree(None, p_spec)
@@ -3268,27 +3300,30 @@ def _pod_recurrent(dev, mesh, seam: dict, route_ms: dict) -> None:
             steps = [shd.sharded(plain, (p_spec, o_spec, rows), (p_spec, o_spec, None), ctx,
                                  cfg=tcfg, route=r) for r in _asked("tp")]
         if [st.route for st in steps] != ["tp", "gathered"]:
-            fail(f"pod mesh (d1) {arch}: routes {[st.route for st in steps]}")
+            fail(f"pod mesh ({part}1) {arch}: routes {[st.route for st in steps]}")
         placed = lambda t, s: shd.place(t, s, mesh)  # noqa: E731
         for turn in range(POD_TURNS):
             for step in steps:
-                (got, ms, peak), launched, calls = counted(
+                (got, ms, peak), launched, calls, exchanged = counted(
                     lambda: train(step, placed, (p_spec, o_spec)))  # noqa: B023
                 route_ms.setdefault(f"train {arch} {step.route}", []).extend(ms)
-                line = (f"pod mesh (d1) {arch} route {step.route} turn {turn}: sharded train "
-                        f"steps {[round(t, 3) for t in ms]} ms (unsharded "
+                tp = step.route == "tp"
+                line = (f"pod mesh ({part}1) {arch} route {step.route} turn {turn}: sharded "
+                        f"train steps {[round(t, 3) for t in ms]} ms (unsharded "
                         f"{[round(t, 3) for t in plain_ms]}), peak {peak} bytes, {launched} "
-                        f"dh-256 launches (want {want_launched}), {calls} through the seam; "
+                        f"attention launches (want {want_launched}), {calls} through the seam, "
+                        f"{exchanged} expert exchanges (want {train_exchanges if tp else 0}); "
                         f"every step's loss and the digests of its params and moments equal to "
                         f"the unsharded step's {got == want}")
                 if not (got == want and launched == want_launched
-                        and calls == (launched if step.route == "tp" else 0)):
+                        and calls == (launched if tp else 0)
+                        and exchanged == (train_exchanges if tp else 0)):
                     fail(line)
                 log(line)
         del params0, batches, steps
         torch.cuda.empty_cache()
 
-        # (d2) the serve path, under the serving rules
+        # (2) the serve path, under the serving rules
         params0 = init_params(cfg, SEED + 12, device=dev)
         prompts = torch.from_numpy(np.random.default_rng(SEED + 12).integers(
             0, cfg.vocab_size, POD_PREFILL)).to(dev)
@@ -3315,16 +3350,23 @@ def _pod_recurrent(dev, mesh, seam: dict, route_ms: dict) -> None:
         runs = [counted(lambda: serve(make_prefill_step(cfg), make_serve_step(cfg), params0,
                                       init_cache(cfg, b, STEPS, device=dev)))
                 for _ in range(2)]
-        want, want_launched, _ = runs[0]
+        want, want_launched, _, _ = runs[0]
         again = runs[1][0]
         repeats = (torch.equal(again[0], want[0]) and torch.equal(again[1], want[1])
                    and again[2] == want[2])
-        log(f"pod mesh (d2) {arch}: unsharded prefill {again[3]:.6f} ms, serve step "
-            f"{again[4]:.6f} ms, {want_launched} dh-256 launches a prefill; a second run "
-            f"bit-identical {repeats}")
+        drops = ""
+        if moe:
+            dropped, routed = _zoo_dropped(cfg, params0, prompts)
+            drops = (f"; capacity factor {cfg.capacity_factor} dropped {dropped} of {routed} "
+                     f"routed (token, expert) pairs of the prompts ({dropped / routed:.6f})")
+        log(f"pod mesh ({part}2) {arch}: unsharded prefill {again[3]:.6f} ms, serve step "
+            f"{again[4]:.6f} ms, {want_launched} attention launches a prefill; a second run "
+            f"bit-identical {repeats}{drops}")
         if not repeats or want_launched != attn:
-            fail(f"pod mesh (d2) {arch}: the unsharded path repeats its bits {repeats}, "
-                 f"{want_launched} dh-256 launches (want {attn})")
+            fail(f"pod mesh ({part}2) {arch}: the unsharded path repeats its bits {repeats}, "
+                 f"{want_launched} attention launches (want {attn})")
+        # The prefill and each serve step: 2 exchanges a MoE layer each.
+        serve_exchanges = 2 * moe * (1 + STEPS)
         del runs, again
         with sh.use_mesh(mesh, seq_shard=False, serve=True) as ctx:
             p_spec = shd.param_specs_tree(params0, ctx)
@@ -3338,24 +3380,27 @@ def _pod_recurrent(dev, mesh, seam: dict, route_ms: dict) -> None:
                                   (shd.per_batch(None), shd.per_batch(c_spec)), ctx, cfg=cfg,
                                   route=r)) for r in _asked("tp")]
         if [srv.route for _, srv in paths] != ["tp", "gathered"]:
-            fail(f"pod mesh (d2) {arch}: routes {[srv.route for _, srv in paths]}")
+            fail(f"pod mesh ({part}2) {arch}: routes {[srv.route for _, srv in paths]}")
         sp = shd.place(params0, p_spec, mesh)
         for turn in range(POD_TURNS):
             for prefill, srv in paths:
                 route = srv.route
-                (logits, toks, cache, prefill_ms, serve_ms), launched, calls = counted(
+                (logits, toks, cache, prefill_ms, serve_ms), launched, calls, exchanged = counted(
                     lambda: serve(prefill, srv, sp,  # noqa: B023
                                   shd.place(init_cache(cfg, b, STEPS, device=dev), c_spec, mesh)))
                 route_ms.setdefault(f"prefill {arch} {route}", []).append(prefill_ms)
                 route_ms.setdefault(f"serve {arch} {route}", []).append(serve_ms)
                 gap = float((logits - want[0]).abs().max())
                 ok = torch.equal(toks, want[1]) and cache == want[2]
-                line = (f"pod mesh (d2) {arch} route {route} turn {turn}: sharded prefill "
-                        f"{prefill_ms:.6f} ms, serve step {serve_ms:.6f} ms; {launched} dh-256 "
-                        f"launches (want {attn}), {calls} through the seam; prefill logits max "
+                tp = route == "tp"
+                line = (f"pod mesh ({part}2) {arch} route {route} turn {turn}: sharded prefill "
+                        f"{prefill_ms:.6f} ms, serve step {serve_ms:.6f} ms; {launched} attention "
+                        f"launches (want {attn}), {calls} through the seam, {exchanged} expert "
+                        f"exchanges (want {serve_exchanges if tp else 0}); prefill logits max "
                         f"gap {gap:.3e}; tokens and the cache's digest equal {ok}")
                 if not (ok and gap == 0.0 and launched == attn
-                        and calls == (launched if route == "tp" else 0)):
+                        and calls == (launched if tp else 0)
+                        and exchanged == (serve_exchanges if tp else 0)):
                     fail(line)
                 log(line)
         del params0, sp, paths, want
@@ -3582,8 +3627,11 @@ def phase_pod_mesh() -> dict[str, int]:
                 del cache, paths, steps
                 torch.cuda.empty_cache()
         t_rec = time.perf_counter()
-        _pod_recurrent(dev, make_mesh(*POD_MESHES[0]), seam, route_ms)
+        _pod_models(dev, make_mesh(*POD_MESHES[0]), seam, route_ms, POD_RECURRENT, "d")
         log(f"pod mesh (d), the recurrent models: {time.perf_counter() - t_rec:.3f} s")
+        t_rec = time.perf_counter()
+        _pod_models(dev, make_mesh(*POD_MESHES[0]), seam, route_ms, POD_MOE, "e")
+        log(f"pod mesh (e), the routed experts: {time.perf_counter() - t_rec:.3f} s")
         for key, ms in route_ms.items():
             log(f"pod mesh: {key}: median {float(np.median(ms)):.6f} ms of {len(ms)}")
 

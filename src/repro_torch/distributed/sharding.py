@@ -42,6 +42,15 @@ What differs from the reference:
 * ``data_parallel_sum`` / ``data_parallel_size`` are the gradient
   reduction that GSPMD inserts for the reference: inside a sharded step
   they sum over the data-parallel ranks, outside one they are the identity.
+* Expert parallelism: the reference's boundary between ``moe_tokens``
+  (the batch over the data axes) and ``moe_hidden`` (the experts over
+  them) is GSPMD's token all-to-all. Here it is :func:`expert_exchange`,
+  an all-to-all (with its gradient) over the data-parallel ranks that a
+  step's expert weights are split over (:func:`expert_parallel`, which
+  ``launch.shardings.sharded`` opens around a step on the ``"tp"``
+  route). A DTensor is exchanged on its local tensor, never by
+  ``redistribute``: on the CPU's process groups DTensor moves a shard
+  from one dim to another by an all-gather and a slice.
 """
 
 from __future__ import annotations
@@ -51,9 +60,10 @@ import threading
 
 __all__ = ["P", "ShardingCtx", "activate", "cache_logical", "compute_mesh", "constrain",
            "current", "data_parallel", "data_parallel_size", "data_parallel_sum", "einsum",
+           "exchange_counts", "expert_exchange", "expert_parallel",
            "gather_shards", "laid_out_as", "local_seam", "mesh_axis_sizes", "model_rank",
-           "own_part", "placements", "replicated", "resume", "snapshot", "spec",
-           "tensor_parallel", "unsplit", "use_mesh"]
+           "own_part", "placements", "replicated", "reset_exchange_counts", "resume",
+           "snapshot", "spec", "tensor_parallel", "unsplit", "use_mesh"]
 
 _state = threading.local()
 
@@ -399,10 +409,19 @@ def data_parallel_size() -> int:
     return n
 
 
-def data_parallel_sum(tree):
+def data_parallel_sum(tree, like=None):
     """Each tensor leaf of ``tree`` summed over the data-parallel ranks of
     the current sharded step (an all-reduce over its mesh dimensions, run
-    even where they have one rank); ``tree`` itself outside one."""
+    even where they have one rank); ``tree`` itself outside one.
+
+    ``like`` (a tree of the same structure: the step's parameters, of
+    which ``tree`` holds the gradients) names the leaves that the step
+    sees split over data-parallel dims (:func:`expert_parallel`: a rank's
+    own experts). Such a gradient holds this rank's experts, into which
+    the exchange's backward has already summed every rank's rows: it is
+    summed over the other data-parallel dims only (none, where the
+    experts are split over all of them). Summed over its own, it would add
+    different experts together."""
     dp = getattr(_state, "dp", None)
     if dp is None:
         return tree
@@ -411,10 +430,13 @@ def data_parallel_sum(tree):
     from ..tree import tree_map
 
     mesh, dims = dp
-    partial = [Partial() if i in dims else Replicate() for i in range(mesh.ndim)]
     replicate = [Replicate()] * mesh.ndim
 
-    def reduce(x):
+    def reduce(x, p=None):
+        over = tuple(i for i in dims if i not in _expert_dims_of(p))
+        if dims and not over:
+            return x
+        partial = [Partial() if i in over else Replicate() for i in range(mesh.ndim)]
         # A DTensor of a tensor-parallel step: its local shard is summed,
         # its placement over ``model`` kept.
         local = x.to_local() if isinstance(x, DTensor) else x
@@ -425,7 +447,92 @@ def data_parallel_sum(tree):
                                       shape=x.shape, stride=x.stride())
         return out
 
-    return tree_map(reduce, tree)
+    return tree_map(reduce, tree) if like is None else tree_map(reduce, tree, like)
+
+
+# ------------------------------------------------- expert-parallel exchange
+# Calls of expert_exchange inside a sharded step, counted where it runs its
+# all-to-all (a group of one rank included).
+_exchanges = {"calls": 0}
+
+
+@contextlib.contextmanager
+def expert_parallel(mesh, dims: tuple[int, ...] = (), leaves=()):
+    """Inside the block, :func:`expert_exchange` exchanges over ``mesh``
+    (a 1-D mesh of the data-parallel ranks that the step's expert weights
+    are split over, in the order of their chunks; ``None`` closes it):
+    ``dims`` are those ranks' dims of the step's mesh, ``leaves`` the
+    step's inputs that it sees split over them (by ``id``: the expert
+    weights and their moments, whose gradients :func:`data_parallel_sum`
+    does not sum over ``dims``). ``launch.shardings.sharded`` opens it."""
+    prev = getattr(_state, "ep", None)
+    _state.ep = None if mesh is None else (mesh, tuple(dims), frozenset(leaves))
+    try:
+        yield mesh
+    finally:
+        _state.ep = prev
+
+
+def _expert_dims_of(x) -> tuple:
+    """The step-mesh dims over which the current step sees ``x`` split as
+    an expert weight (a leaf :func:`expert_parallel` names), else ()."""
+    ep = getattr(_state, "ep", None)
+    return ep[1] if ep is not None and x is not None and id(x) in ep[2] else ()
+
+
+def exchange_counts() -> dict:
+    """{"calls": the :func:`expert_exchange` calls that exchanged}."""
+    return dict(_exchanges)
+
+
+def reset_exchange_counts() -> None:
+    _exchanges["calls"] = 0
+
+
+def expert_exchange(x, split_dim: int, concat_dim: int):
+    """Inside a step with an expert exchange (:func:`expert_parallel`),
+    ``x`` exchanged over its ``n`` ranks: dim ``split_dim`` is cut into
+    ``n`` equal chunks, chunk ``j`` is sent to rank ``j``, and the chunks
+    received are concatenated on ``concat_dim`` in the order of the
+    ranks that sent them (an all-to-all, ``all_to_all_single`` of the
+    functional collectives, whose backward is the reverse exchange). With
+    ``(split_dim, concat_dim) = (1, 0)`` a (B, E, C, D) dispatch becomes
+    (n·B, E/n, C, D): this rank's experts' slots from every rank's rows;
+    ``(0, 1)`` sends them back. A DTensor (over the ``model`` submesh)
+    is exchanged on its local tensor and keeps its placements, which must
+    not lie on either dim. Outside such a step, ``x`` itself."""
+    ep = getattr(_state, "ep", None)
+    if ep is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    mesh = ep[0]
+    _exchanges["calls"] += 1
+    if not isinstance(x, DTensor):
+        return _exchange_local(x, split_dim, concat_dim, mesh)
+    dims = {split_dim % x.ndim, concat_dim % x.ndim}
+    if any(p.is_shard() and p.dim % x.ndim in dims for p in x.placements):
+        raise ValueError(f"expert_exchange: {x.placements} split a dim of {sorted(dims)}, "
+                         "the dims it exchanges")
+    out = _exchange_local(x.to_local(), split_dim, concat_dim, mesh)
+    return DTensor.from_local(out, x.device_mesh, x.placements, run_check=False)
+
+
+def _exchange_local(t, split_dim: int, concat_dim: int, mesh):
+    from torch.distributed._functional_collectives import all_to_all_single, wait_tensor
+
+    n = mesh.size()
+    split_dim, concat_dim = split_dim % t.ndim, concat_dim % t.ndim
+    if t.shape[split_dim] % n:
+        raise ValueError(f"expert_exchange: dim {split_dim} of {tuple(t.shape)} does not "
+                         f"split over {n} ranks")
+    # (..., n, S/n, ...) with the n chunks leading: chunk j goes to rank j.
+    parts = t.unflatten(split_dim, (n, t.shape[split_dim] // n)).movedim(split_dim, 0)
+    # Waited here: a local_map that meets the asynchronous result drops
+    # its gradient.
+    got = wait_tensor(all_to_all_single(parts.contiguous(), None, None, mesh))
+    # Chunk j came from rank j: laid before concat_dim's entries, merged.
+    return got.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
 
 
 # ------------------------------------------------- tensor-parallel compute
@@ -450,8 +557,9 @@ def compute_mesh():
 
 
 def snapshot() -> dict:
-    """The current context, data-parallel and tensor-parallel state."""
-    return {k: getattr(_state, k, None) for k in ("ctx", "dp", "tp")}
+    """The current context, data-parallel, tensor-parallel and
+    expert-parallel state."""
+    return {k: getattr(_state, k, None) for k in ("ctx", "dp", "tp", "ep")}
 
 
 @contextlib.contextmanager

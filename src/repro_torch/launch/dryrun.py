@@ -39,13 +39,18 @@ weights, computes its heads, FFN columns and vocabulary columns, and the
 collectives are the residual's gathers and reductions and the FSDP
 gathers over ``data``; so is a recurrent model's (recurrentgemma,
 rwkv6): each rank scans its own RG-LRU channels and runs its own RWKV-6
-heads. The MoE models, the compressed
-serving step and ``--profile dp`` take the gathered route: each rank
-gathers every weight whole and runs the whole model on its rows, so the
-ranks of a ``model`` group repeat each other's compute, which
+heads; and a MoE model's (granite-moe-3b-a800m, arctic-480b): each rank
+computes its columns of each expert's hidden, and where the experts divide
+over the data axes (arctic's 128 over 16, or 32 on the multi-pod mesh) it
+keeps its own experts and the tokens travel to them by an all-to-all
+(``sh.expert_exchange``; granite's 40 are gathered over ``data``). The
+compressed serving step and ``--profile dp`` take the gathered route: each
+rank gathers every weight whole and runs the whole model on its rows, so
+the ranks of a ``model`` group repeat each other's compute, which
 ``useful_flops_ratio`` shows. On the CPU's process groups DTensor moves a
 shard to another dim by an all-gather and a slice (no all-to-all), and
-the fake group is one of them: such a move is counted as an all-gather.
+the fake group is one of them: such a move is counted as an all-gather;
+the expert exchange is an all-to-all of its own, counted as one.
 
 The fake group takes the process's default group, so run this as its own
 process:

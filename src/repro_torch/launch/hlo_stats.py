@@ -4,8 +4,9 @@ The port of the reference's ``repro/launch/hlo_stats.py``. The reference
 parses XLA's optimized HLO text; the port has no compiler in between, so
 it records what a step dispatches: :class:`StepRecorder` is a dispatch
 mode that notes every functional collective (``_c10d_functional``: what
-DTensor's ``redistribute`` and ``full_tensor`` issue, and the
-redistributions DTensor makes inside an op of a tensor-parallel step),
+DTensor's ``redistribute`` and ``full_tensor`` issue, the
+redistributions DTensor makes inside an op of a tensor-parallel step, and
+the expert exchange's ``all_to_all_single``, forward and backward),
 each as (kind, result bytes on this rank, group size) and, in ``shapes``,
 (kind, result shape, the group's ranks), every aten op by name, and the bytes
 each non-view op reads and writes. It lets DTensor's own dispatch run

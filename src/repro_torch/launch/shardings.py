@@ -16,23 +16,32 @@ data-parallel axes (the ``tokens`` rule's), and the other inputs gathered
 over the data-parallel axes (FSDP). What it does over ``model`` is the
 step's *route* (:func:`compute_route`):
 
-* ``"tp"``, a model of attention, RG-LRU, RWKV-6 and dense or RWKV
-  channel-mix blocks under a rule table that shards over a ``model`` axis
-  of more than one rank: the inputs keep their ``model`` shards, as
-  DTensors over the ``model`` submesh, and the model code splits each
-  layer's compute over the axis at the reference's sharding constraints
-  (``sh.constrain``, ``sh.einsum``, ``sh.local_seam``), as GSPMD does at
-  them: heads, FFN columns and vocabulary columns, RG-LRU channels and
-  RWKV-6 heads, the scans and the chunk loop on each rank's own;
+* ``"tp"``, every model of the zoo (attention, RG-LRU, RWKV-6, dense, RWKV
+  and routed-expert channel mixes) under a rule table that shards over a
+  ``model`` axis of more than one rank: the inputs keep their ``model``
+  shards, as DTensors over the ``model`` submesh, and the model code
+  splits each layer's compute over the axis at the reference's sharding
+  constraints (``sh.constrain``, ``sh.einsum``, ``sh.local_seam``), as
+  GSPMD does at them: heads, FFN columns and vocabulary columns, RG-LRU
+  channels and RWKV-6 heads, the scans and the chunk loop on each rank's
+  own, each expert's hidden columns. The expert weights (and their
+  moments) that a spec splits over data-parallel axes as the batch is
+  (``p_expert_in`` / ``p_expert_out`` at ``P(dp, …)``: an entry written
+  as the batch's, a tuple, not an FSDP ``"data"``) are not gathered: the
+  step sees this rank's experts, and the tokens travel to them
+  (``sh.expert_exchange``, an all-to-all over those axes, which the step
+  runs under ``sh.expert_parallel``); on the way out they are put back
+  split over those axes;
 * ``"gathered"``, every other step (the ``"dp"`` rules, a ``model`` axis
-  of one rank, the MoE blocks, the compressed parameters, a step named no
-  config): every input is gathered whole and the step runs on local
-  tensors, so the ranks of a ``model`` group repeat each other's
-  compute.
+  of one rank, the compressed parameters, a step named no config): every
+  input is gathered whole and the step runs on local tensors, so the
+  ranks of a ``model`` group repeat each other's compute.
 
 Either way the gradients are summed over the data-parallel ranks inside
 the step (``sharding.data_parallel_sum`` in ``make_train_step``), so every
-rank updates the same parameters.
+rank updates the same parameters; an expert weight's gradient, which
+holds this rank's experts, is summed only over the data-parallel axes its
+experts are not split over.
 """
 
 from __future__ import annotations
@@ -314,22 +323,36 @@ class per_batch:
 
 # The blocks whose compute the model code splits over ``model`` (the
 # reference's sharding constraints are ported for them). A model with any
-# other block (the routed experts) keeps the gathered route.
+# other block keeps the gathered route.
 TP_SEQ_BLOCKS = frozenset({"attn", "local_attn", "rglru", "rwkv6"})
-TP_MIX_BLOCKS = frozenset({"swiglu", "gelu", "rwkv_cm"})
+TP_MIX_BLOCKS = frozenset({"swiglu", "gelu", "rwkv_cm", "moe", "moe_dense"})
 
 
-def _recurrent_widths(cfg) -> dict[str, int]:
-    """The widths that the recurrent blocks of ``cfg`` split over
-    ``model``: each rank scans its own RG-LRU channels and runs its own
-    RWKV-6 heads."""
+def _split_widths(cfg) -> dict[str, int]:
+    """The widths that the blocks of ``cfg`` which cannot leave them
+    whole split over ``model``: each rank scans its own RG-LRU channels,
+    runs its own RWKV-6 heads and computes its own columns of each
+    expert's hidden."""
     kinds = set(cfg.period) | set(cfg.tail)
     out = {}
     if "rglru" in kinds:
         out["RG-LRU channels (d_rnn)"] = cfg.d_rnn
     if "rwkv6" in kinds:
         out["RWKV-6 heads"] = cfg.d_model // cfg.rwkv_head_dim
+    if {"moe", "moe_dense"} & (set(cfg.mix) | set(cfg.tail_mix)):
+        out["expert hidden columns (d_ff)"] = cfg.d_ff
     return out
+
+
+def _expert_axes(spec: P, dp_axes) -> tuple:
+    """The data-parallel axes over which ``spec`` splits a dim as the
+    batch is split: its first entry written as the batch's (a tuple of
+    some of ``dp_axes``; the expert weights' ``P(dp, …)``), never an FSDP
+    ``"data"``; () if it has none."""
+    for entry in tuple(spec):
+        if isinstance(entry, tuple) and entry and set(entry) <= set(dp_axes):
+            return tuple(entry)
+    return ()
 
 
 def compute_route(ctx: sh.ShardingCtx, cfg, route: str | None = None) -> str:
@@ -337,15 +360,16 @@ def compute_route(ctx: sh.ShardingCtx, cfg, route: str | None = None) -> str:
 
     By default ``"tp"`` where the table shards over a ``model`` axis of
     more than one rank and every block of the config is one that the
-    model code splits (:data:`TP_SEQ_BLOCKS`, :data:`TP_MIX_BLOCKS`: all
-    but the routed experts), else ``"gathered"`` (also for a step that
-    names no config): on a ``model`` axis of one rank the split has
-    nothing to split and costs DTensor's dispatch. ``route`` asks for a
-    route instead: ``"gathered"`` always, ``"tp"`` wherever the default
-    would split but for the axis' size (a one-rank check of the split
-    route); anything else raises. So does the ``"tp"`` route of a config
-    whose RG-LRU channels or RWKV-6 heads do not divide over ``model``:
-    its scans cannot be split, and are not quietly gathered.
+    model code splits (:data:`TP_SEQ_BLOCKS`, :data:`TP_MIX_BLOCKS`: every
+    block of the zoo), else ``"gathered"`` (also for a step that names no
+    config): on a ``model`` axis of one rank the split has nothing to
+    split and costs DTensor's dispatch. ``route`` asks for a route
+    instead: ``"gathered"`` always, ``"tp"`` wherever the default would
+    split but for the axis' size (a one-rank check of the split route);
+    anything else raises. So does the ``"tp"`` route of a config whose
+    RG-LRU channels, RWKV-6 heads or expert hidden columns (``d_ff``) do
+    not divide over ``model``: its scans cannot be split, and its experts
+    would be computed whole on every rank; neither is quietly gathered.
     """
     sizes = sh.mesh_axis_sizes(ctx.mesh)
     splits = (cfg is not None and ctx.profile == "tp" and "model" in sizes
@@ -357,10 +381,10 @@ def compute_route(ctx: sh.ShardingCtx, cfg, route: str | None = None) -> str:
         raise ValueError(f"route {route!r} is not open to {getattr(cfg, 'name', cfg)} under "
                          f"the {ctx.profile!r} table on a mesh of {sizes}")
     if route == "tp":
-        odd = {what: n for what, n in _recurrent_widths(cfg).items() if n % sizes["model"]}
+        odd = {what: n for what, n in _split_widths(cfg).items() if n % sizes["model"]}
         if odd:
             raise ValueError(f"{cfg.name}'s {odd} do not divide over a model axis of "
-                             f"{sizes['model']} ranks: its recurrent blocks cannot be split")
+                             f"{sizes['model']} ranks: its blocks cannot be split")
     return route
 
 
@@ -384,7 +408,13 @@ def sharded(step, in_specs: tuple, out_specs: tuple, ctx: sh.ShardingCtx, *, cfg
     ``route``) decides the ``model`` axis: on ``"tp"`` the step sees each
     input's ``model`` shard as a DTensor over the ``model`` submesh, runs
     under ``ctx``'s table and returns DTensors there; on ``"gathered"`` it
-    sees whole local tensors. The inputs are
+    sees whole local tensors. On ``"tp"`` a leaf of a spec tree split over
+    data-parallel axes as the batch is (:func:`_expert_axes`: the expert
+    weights and their moments) is seen as this rank's part over them, and
+    an output spec of that form puts the leaf back split over them; the
+    step runs under ``sh.expert_parallel`` over those axes (flattened,
+    major first, where there are several), which must be axes the batch
+    is split over. The inputs are
     not donated; a batch input already placed as the step sees it (a cache
     placed by the rules) is the same storage the step sees, so a step that
     updates it in place updates the input. ``call.route`` names the route.
@@ -393,10 +423,26 @@ def sharded(step, in_specs: tuple, out_specs: tuple, ctx: sh.ShardingCtx, *, cfg
 
     mesh = ctx.mesh
     names = list(mesh.mesh_dim_names)
-    dp_dims = tuple(names.index(a) for a in sh._axes(ctx.spec("tokens")[0]))
+    dp_axes = sh._axes(ctx.spec("tokens")[0])
+    dp_dims = tuple(names.index(a) for a in dp_axes)
     route = compute_route(ctx, cfg, route)
     tp_dims = (names.index("model"),) if route == "tp" else ()
     sub = mesh["model"] if tp_dims else None
+    # The data-parallel axes the expert weights stay split over (tp route).
+    found = {_expert_axes(s, dp_axes) for spec in in_specs
+             if spec is not None and not isinstance(spec, per_batch)
+             for s in tree_leaves(spec)} - {()} if tp_dims else set()
+    if len(found) > 1:
+        raise ValueError(f"the inputs' experts are split over different axes: {sorted(found)}")
+    ep_axes = found.pop() if found else ()
+    ep_dims = tuple(names.index(a) for a in ep_axes)
+    ep_mesh = (None if not ep_axes else mesh[ep_axes[0]] if len(ep_axes) == 1
+               else mesh[ep_axes]._flatten())
+
+    def experts(spec) -> tuple:
+        """The dims over which the step sees a leaf placed at ``spec``
+        split as its experts."""
+        return ep_dims if ep_dims and _expert_axes(spec, dp_axes) else ()
 
     def seen(target, split):
         """The placements of what the step sees of a leaf placed at
@@ -447,15 +493,28 @@ def sharded(step, in_specs: tuple, out_specs: tuple, ctx: sh.ShardingCtx, *, cfg
                     split = mine
             placed_in.append((placed, rows))
         split = split or ()
-        local = []
-        for placed, rows in placed_in:
+        if not set(ep_dims) <= set(split):
+            raise ValueError(f"the experts are split over {ep_axes}, and the batch is not: "
+                             "the tokens cannot travel to them")
+        local, kept = [], []
+
+        def mine(x, spec):
+            got = to_step(x, experts(spec))
+            if experts(spec):
+                kept.append(got)
+            return got
+
+        for (placed, rows), spec in zip(placed_in, in_specs):
             if rows is None:
                 local.append(placed)
-            elif not rows and not tp_dims:
+            elif rows:
+                local.append(tree_map(lambda x: to_step(x, split), placed))
+            elif not tp_dims:
                 local.append(tree_map(lambda x: x.full_tensor(), placed))
             else:
-                local.append(tree_map(lambda x, r=rows: to_step(x, split if r else ()), placed))
-        with sh.activate(ctx), sh.data_parallel(mesh, split), sh.tensor_parallel(sub):
+                local.append(tree_map(mine, placed, spec))
+        with (sh.activate(ctx), sh.data_parallel(mesh, split), sh.tensor_parallel(sub),
+              sh.expert_parallel(ep_mesh, ep_dims, map(id, kept))):
             out = step(*local)
         outs = out if isinstance(out, tuple) else (out,)
         if len(outs) != len(out_specs):
@@ -476,8 +535,10 @@ def sharded(step, in_specs: tuple, out_specs: tuple, ctx: sh.ShardingCtx, *, cfg
                     return _to(from_step(x, split, target), target, mesh)
                 placed_out.append(tree_map(back, o, spec.specs))
             elif tp_dims:
-                placed_out.append(tree_map(
-                    lambda x, s: _to(from_step(x, ()), sh.placements(s, mesh), mesh), o, spec))
+                def put(x, s):
+                    target = sh.placements(s, mesh)
+                    return _to(from_step(x, experts(s), target), target, mesh)
+                placed_out.append(tree_map(put, o, spec))
             else:
                 placed_out.append(place(o, spec, mesh))
         return tuple(placed_out) if isinstance(out, tuple) else placed_out[0]

@@ -49,8 +49,10 @@ def make_train_step(cfg: ModelConfig, n_microbatches: int = 1, *,
     With one microbatch the gradients stay in the parameters' dtypes, as in
     the reference. Inside ``launch.shardings.sharded`` each data-parallel
     rank runs this on its own rows, and the losses and gradients are summed
-    over the ranks before the division (by microbatches × ranks). Then one
-    ``adamw_update``; the inputs are left as they were.
+    over the ranks before the division (by microbatches × ranks); the
+    gradients of a rank's own experts (``sh.expert_parallel``) only over
+    the ranks that hold the same experts. Then one ``adamw_update``; the
+    inputs are left as they were.
     """
     acc_dtype = grad_dtype or torch.float32
 
@@ -85,8 +87,11 @@ def make_train_step(cfg: ModelConfig, n_microbatches: int = 1, *,
         # Inside a sharded step (launch.shardings.sharded) the sums over the
         # data-parallel ranks, each of which computed on its own rows, as
         # GSPMD reduces the reference's gradients; outside one, unchanged.
+        # A rank's own experts' gradients already hold every rank's rows
+        # (the exchange's backward): they are not summed over the ranks
+        # that hold other experts, but divided by n as the rest are.
         n = n_microbatches * sh.data_parallel_size()
-        loss, grads = sh.data_parallel_sum(loss), sh.data_parallel_sum(grads)
+        loss, grads = sh.data_parallel_sum(loss), sh.data_parallel_sum(grads, like=params)
         if n > 1:
             loss, grads = loss / n, tree_map(lambda g: g / n, grads)
         params, opt_state = adamw_update(params, grads, opt_state, lr=lr)

@@ -26,9 +26,12 @@ sequence-sharded residual is gathered (``"residual_gathered"``) before
 the column-parallel products, and the attention's output is laid out as
 ``wo`` is (``"heads"``) before the row-parallel one. The recurrent blocks
 (``models/recurrent.py``) split their channels and heads the same way;
-``MoE`` is not split over ``model`` (its models take the gathered route);
-its routing and expert products are plain PyTorch, as the reference's are
-plain ``jnp`` outside any Pallas kernel.
+``MoE`` splits each expert's hidden over ``model`` and, where the step
+keeps the expert weights split over the data-parallel ranks, sends each
+token to its experts' rank and back (``sh.expert_exchange``, the
+all-to-all that GSPMD makes of the reference's ``moe_tokens`` /
+``moe_hidden`` boundary). Its routing and expert products are plain
+PyTorch, as the reference's are plain ``jnp`` outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -377,7 +380,16 @@ class GeluMLP:
 @dataclasses.dataclass(frozen=True)
 class MoE:
     """Top-k routed experts with capacity-based dispatch (GShard-style, per
-    batch row), optionally beside a dense SwiGLU residual (arctic)."""
+    batch row), optionally beside a dense SwiGLU residual (arctic).
+
+    At the reference's four constraints inside a tensor-parallel step:
+    the dispatch (B, E, C, D) on ``"moe_tokens"`` (the batch over the data
+    axes), exchanged (``sh.expert_exchange``) to (B·d, E/d, C, D), this
+    rank's experts' slots from every data-parallel rank's rows, where the
+    step keeps the expert weights split over d data-parallel ranks; the
+    hidden (·, ·, C, F) on ``"moe_hidden"``, its columns over ``model``;
+    the down-projection's partial sums reduced on ``"moe_tokens"`` and
+    exchanged back; the output on ``"residual"``."""
 
     d_ff: int
     n_experts: int
@@ -410,37 +422,72 @@ class MoE:
         ``expert · cap + position`` or the overflow row ``E · cap`` past
         capacity; cap). Positions come from a cumsum within each row over
         the flattened (S·k) order, as in the reference."""
+        cap = self.capacity(x.shape[1])
+        return (*self._route(x, p["router"], cap), cap)
+
+    def _route(self, x, router, cap: int):
         b, s, _ = x.shape
         e, k = self.n_experts, self.top_k
-        cap = self.capacity(s)
-        gates = torch.softmax(x.to(torch.float32) @ p["router"], dim=-1)   # (B, S, E)
+        gates = torch.softmax(x.to(torch.float32) @ router, dim=-1)        # (B, S, E)
         top_g, top_e = torch.topk(gates, k, dim=-1)                        # (B, S, k)
         top_g = top_g / torch.clamp_min(top_g.sum(dim=-1, keepdim=True), 1e-9)
         flat_e = top_e.reshape(b, s * k)
         onehot = F.one_hot(flat_e, e)                                       # (B, S·k, E)
         pos = ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(dim=-1)     # (B, S·k)
         dest = torch.where(pos < cap, flat_e * cap + pos, e * cap)
-        return top_g.reshape(b, s * k), dest, cap
+        return top_g.reshape(b, s * k), dest
 
-    def forward(self, p, x):
-        """x (B, S, D) → (B, S, D). Tokens past an expert's capacity in their
-        row are dropped (their slot is the overflow row, which is never
-        computed). Expert products are einsums over (B, E, C, D)."""
+    def _dispatch(self, x, router, cap: int):
+        """(gates, dest, xe): the routing, and x's rows scattered to their
+        slots, (B, E, C, D) (the overflow row cut off)."""
         b, s, d = x.shape
         e, k = self.n_experts, self.top_k
-        gates, dest, cap = self.route(p, x)
+        gates, dest = self._route(x, router, cap)
         tok = torch.arange(s * k, device=x.device) // k
         idx = dest[..., None].expand(b, s * k, d)
         xe = torch.zeros((b, e * cap + 1, d), dtype=x.dtype, device=x.device)
         xe = xe.scatter_add(1, idx, x[:, tok])
-        xe = xe[:, :e * cap].reshape(b, e, cap, d)
-        h = F.silu(torch.einsum("becd,edf->becf", xe, p["wg"]))
-        h = h * torch.einsum("becd,edf->becf", xe, p["wu"])
-        ye = torch.einsum("becf,efd->becd", h, p["wd"])
+        return gates, dest, xe[:, :e * cap].reshape(b, e, cap, d)
+
+    def _combine(self, ye, gates, dest):
+        """(B, S, D): each token's experts' outputs gathered from their
+        slots (a dropped pair reads the zero overflow row), weighted by
+        their gates and summed over the k choices."""
+        b, e, cap, d = ye.shape
+        k = self.top_k
+        idx = dest[..., None].expand(b, dest.shape[1], d)
         ye_flat = torch.cat([ye.reshape(b, e * cap, d),
                              torch.zeros((b, 1, d), dtype=ye.dtype, device=ye.device)], dim=1)
         y = torch.gather(ye_flat, 1, idx) * gates[..., None].to(ye.dtype)
-        y = y.reshape(b, s, k, d).sum(dim=2)
+        return y.reshape(b, dest.shape[1] // k, k, d).sum(dim=2)
+
+    def forward(self, p, x):
+        """x (B, S, D) → (B, S, D). Tokens past an expert's capacity in their
+        row are dropped (their slot is the overflow row, which is never
+        computed). Expert products are einsums over (B, E, C, D).
+
+        On DTensors (a tensor-parallel step) the residual is gathered
+        whole over ``model`` first (routing takes a cumsum over each whole
+        row), and the routing with the scatter, and the gather with the
+        gate weighting, each run behind one seam on every rank's replicated
+        local tensors; the router is whole on every rank of a ``model``
+        group, so all of them route alike. Between the seams, the expert
+        products split each expert's hidden columns over ``model``."""
+        from torch.distributed.tensor import Replicate
+
+        x = sh.constrain(x, "residual_gathered")
+        whole = (Replicate(),)
+        cap = self.capacity(x.shape[1])
+        dispatch = sh.local_seam(lambda x, r: self._dispatch(x, r, cap), [whole] * 3,
+                                 [whole, whole])
+        gates, dest, xe = dispatch(x, p["router"])
+        xe = sh.expert_exchange(sh.constrain(xe, "moe_tokens"), 1, 0)
+        h = F.silu(sh.einsum("becd,edf->becf", xe, p["wg"]))
+        h = h * sh.einsum("becd,edf->becf", xe, p["wu"])
+        h = sh.constrain(h, "moe_hidden")
+        ye = sh.constrain(sh.einsum("becf,efd->becd", h, p["wd"]), "moe_tokens")
+        ye = sh.expert_exchange(ye, 0, 1)
+        y = sh.local_seam(self._combine, whole, [whole] * 3)(ye, gates, dest)
         if self.dense_residual:
-            y = y + SwiGLU(self.d_ff).forward(p["dense"], x)
-        return y
+            y = sh.constrain(y, "residual") + SwiGLU(self.d_ff).forward(p["dense"], x)
+        return sh.constrain(y, "residual")

@@ -32,9 +32,11 @@ cross entropy reduces the row max, the sum of exponentials and the gold
 logit over the vocabulary shards without gathering the (B, S, V)
 logits. Every block, attention, RG-LRU, RWKV-6 or channel mix, takes the
 residual as the step placed it and gives back its output on
-``"residual"``; the decode cache's recurrent states stay split as the
-rules place them, each rank writing its own shard. Under remat the
-recompute runs every seam again under the step's sharding state.
+``"residual"`` (the routed experts exchange their tokens over the
+data-parallel ranks in between, a decode step's one token a row too);
+the decode cache's recurrent states stay split as the rules place them,
+each rank writing its own shard. Under remat the recompute runs every
+seam and exchange again under the step's sharding state.
 """
 
 from __future__ import annotations

@@ -38,7 +38,12 @@ and for the pod-mesh layer, the sharded train step over a world-size-1
 NCCL group bit-identical to the unsharded one and, on a machine with four
 cards (skipped on one), over four NCCL ranks against the microbatched step
 and, split over ``model`` on a (1, 4) mesh at internlm2-1.8b's widths,
-against the unsharded step, beside the gathered route's memory and time.
+against the unsharded step, beside the gathered route's memory and time;
+on a (2, 2) mesh, the routed experts split over ``data`` and their hidden
+over ``model``, the tokens crossing the data ranks by an NCCL all-to-all
+(granite-moe-3b-a800m's widths and arctic-480b's, train steps against the
+microbatched step; arctic's prefill and serve step with all 128 experts
+against the gathered route).
 """
 
 import dataclasses
@@ -1084,20 +1089,45 @@ TP4_RECURRENT = {"recurrentgemma-9b": dict(n_layers=3, tail=(), tail_mix=(), voc
 TP4_LAYERWISE = {"rwkv6-7b"}
 
 
+# The routed experts on a (2, 2) mesh (TP4_MOE), in float32, TP4_STEPS steps
+# on TP4_BATCH x TP4_LEN batches: granite-moe-3b-a800m's widths (d_model
+# 1536, 24 heads on 8 KV heads, 40 experts of d_ff 512, top 8, vocab 49,155)
+# at 2 layers, its capacity factor 1.25, so that pairs are dropped: 20
+# experts a data rank, 256 hidden columns a model rank; arctic-480b's
+# (d_model 7168, 56 heads on 8 KV heads, d_ff 4864, top 2, a dense SwiGLU
+# residual beside the experts, vocab 32,000) at 1 layer with its experts cut
+# from 128 to 8: at 128, a rank's float32 weights, gradients and moments of
+# one layer would come to about 54 GB, and the unsharded step that the split
+# one is held to would not fit on one card. The unsharded step runs 2
+# microbatches, one a data-parallel rank.
+TP4_MOE = {"granite-moe-3b-a800m": dict(n_layers=2),
+           "arctic-480b": dict(n_layers=1, n_experts=8)}
+# arctic's prefill and serve step at 1 layer with all 128 experts in bfloat16
+# (a rank holds 6.7 GB of experts on the tp route, 26.8 GB once the gathered
+# route has gathered them): a TP4_PREFILL prefill and one serve step, each
+# route's last-position logits within FA_LOGITS_ATOL of the gathered route's
+# (PERF.md section 2: the bf16 attention kernel's logits tolerance), and the
+# same argmax on every row whose top-2 margin exceeds it.
+TP4_PREFILL = (4, 2048)
+FA_LOGITS_ATOL = 0.15
+
+
 def _tp4_config(arch: str):
-    cut = TP4_RECURRENT.get(arch, dict(n_layers=TP4_LAYERS))
+    cut = TP4_RECURRENT.get(arch) or TP4_MOE.get(arch) or dict(n_layers=TP4_LAYERS)
     return dataclasses.replace(get_config(arch), param_dtype="float32",
                                compute_dtype="float32", **cut)
 
 
-def _tp4_worker(rank: int, store_path: str, out_dir: str, arch: str = "internlm2-1.8b") -> None:
-    """One of four NCCL ranks on a (1, 4) mesh: TP4_STEPS train steps at
-    ``arch``'s widths (``_tp4_config``) on the "tp" route and on the
-    gathered route, in turns (tp, gathered, tp, gathered), each from the
-    same weights: each rank's ms a step and peak memory a route; rank 0
-    then runs the unsharded step on its card and holds the first turn's
-    states to it (the tp route's by ``adam_state_gaps``, the gathered
-    route's bits)."""
+def _tp4_worker(rank: int, store_path: str, out_dir: str, arch: str = "internlm2-1.8b",
+                mesh_shape: tuple = (1, 4)) -> None:
+    """One of four NCCL ranks on a ``mesh_shape`` ("data", "model") mesh:
+    TP4_STEPS train steps at ``arch``'s widths (``_tp4_config``) on the
+    "tp" route and on the gathered route, in turns (tp, gathered, tp,
+    gathered), each from the same weights: each rank's ms a step and peak
+    memory a route; rank 0 then runs the unsharded step on its card (a
+    microbatch a data-parallel rank) and holds the first turn's states to
+    it (the tp route's by ``adam_state_gaps``, the gathered route's bits,
+    and at more than one data-parallel rank by ``adam_state_gaps`` too)."""
     import json
     import os
     import time
@@ -1122,7 +1152,7 @@ def _tp4_worker(rank: int, store_path: str, out_dir: str, arch: str = "internlm2
         data = SyntheticLM(cfg.vocab_size, seed=3)
         batches = [{k: torch.from_numpy(v).to(dev) for k, v in
                     data.batch(i, TP4_BATCH, TP4_LEN).items()} for i in range(TP4_STEPS)]
-        mesh = make_mesh((1, 4), ("data", "model"))
+        mesh = make_mesh(mesh_shape, ("data", "model"))
         train = make_train_step(cfg, 1, lr=TP4_LR)
         params = init_params(cfg, seed=0, device=dev)
         with sh.use_mesh(mesh) as ctx:
@@ -1132,13 +1162,19 @@ def _tp4_worker(rank: int, store_path: str, out_dir: str, arch: str = "internlm2
             specs = ((p_spec, o_spec, rows), (p_spec, o_spec, None), ctx)
             steps = {route: shd.sharded(train, *specs, cfg=cfg, route=route)
                      for route in ("tp", "gathered")}
-        report = {"routes": {k: v.route for k, v in steps.items()}, "ms": {}, "peak": {}}
+        report = {"routes": {k: v.route for k, v in steps.items()}, "ms": {}, "peak": {},
+                  "exchanges": {}}
         kept = {}
         for turn in range(2):
             for route, step in steps.items():
                 p = shd.place(params, p_spec, mesh)
                 o = shd.place(adamw_init(params), o_spec, mesh)
+                if cfg.n_experts:
+                    wg = tree_leaves(p["periods"])[[k for k in _paths(p["periods"])].index(
+                        "slot0/mix/wg")]
+                    report.setdefault("expert_shard", {})[route] = list(wg.to_local().shape)
                 losses, states, peak = [], [], 0
+                sh.reset_exchange_counts()
                 for b in batches:
                     torch.cuda.synchronize()
                     torch.cuda.reset_peak_memory_stats()
@@ -1153,6 +1189,7 @@ def _tp4_worker(rank: int, store_path: str, out_dir: str, arch: str = "internlm2
                         states.append(tree_map(lambda x: x.cpu(), whole) if rank == 0 else None)
                         del whole
                 report["peak"].setdefault(route, []).append(peak)
+                report["exchanges"].setdefault(route, []).append(sh.exchange_counts()["calls"])
                 if turn == 0:
                     kept[route] = (losses, states)
                 del p, o
@@ -1160,7 +1197,7 @@ def _tp4_worker(rank: int, store_path: str, out_dir: str, arch: str = "internlm2
         if arch in TP4_LAYERWISE:
             report["layers"] = _tp4_layers(cfg, params, batches[0], mesh, rank)
         if rank == 0:
-            plain = make_train_step(cfg, 1, lr=TP4_LR)
+            plain = make_train_step(cfg, mesh_shape[0], lr=TP4_LR)
             u_p, u_o = params, adamw_init(params)
             losses, want = [], []
             for b in batches:
@@ -1168,9 +1205,9 @@ def _tp4_worker(rank: int, store_path: str, out_dir: str, arch: str = "internlm2
                 losses.append(float(m["loss"]))
                 want.append([u_p, u_o])
             report["losses"] = losses
+            first_rtol = TP_TOL["rtol"] if arch in TP4_RECURRENT else GRAD_RTOL
             bad, seen = adam_state_gaps(kept["tp"][1], want, TP4_LR, TP_TOL,
-                                        first_rtol=(TP_TOL["rtol"] if arch in TP4_RECURRENT
-                                                    else GRAD_RTOL))
+                                        first_rtol=first_rtol)
             final = tree_leaves(kept["gathered"][1][-1])
             report["against_unsharded"] = {
                 "tp": {"losses": kept["tp"][0], "past_tolerance": bad, "seen": seen},
@@ -1178,6 +1215,11 @@ def _tp4_worker(rank: int, store_path: str, out_dir: str, arch: str = "internlm2
                              "bit_identical": all(torch.equal(a.to(b.device), b) for a, b
                                                   in zip(final, tree_leaves(want[-1]),
                                                          strict=True))}}
+            if mesh_shape[0] > 1:
+                # NCCL sums the data-parallel ranks' gradients, the unsharded
+                # step its microbatches': held as the tp route is.
+                report["against_unsharded"]["gathered"]["past_tolerance"] = adam_state_gaps(
+                    kept["gathered"][1], want, TP4_LR, TP_TOL, first_rtol=first_rtol)[0]
         with open(os.path.join(out_dir, f"tp4_r{rank}.json"), "w") as f:
             json.dump(report, f)
     finally:
@@ -1342,6 +1384,22 @@ def test_tensor_parallel_train_step_at_internlm2_widths_on_four_cards(cuda, tmp_
     _hold_tp4(tmp_path, "internlm2-1.8b")
 
 
+@pytest.mark.parametrize("arch", list(TP4_MOE))
+def test_expert_parallel_train_step_of_the_moe_models_on_four_cards(cuda, tmp_path, arch):
+    """Four cards, a (2, 2) mesh, float32: granite-moe-3b-a800m's widths
+    at 2 layers (capacity factor 1.25: pairs dropped) and arctic-480b's at
+    1 layer with 8 of its 128 experts (``TP4_MOE``), the experts split over
+    the 2 data-parallel ranks (20 and 4 a rank) and each expert's hidden
+    over the 2 model ranks (256 and 2,432 columns), the tokens exchanged by
+    an NCCL all-to-all; held to the unsharded step with 2 microbatches on
+    one card as the other widths are (the losses within ``TP_TOL``, each
+    step's state by ``adam_state_gaps``, the first step's gradients within
+    ``GRAD_RTOL``; the gathered route by ``adam_state_gaps`` too); each
+    rank's peak memory and ms a step on both routes printed, the tp
+    route's peak below the gathered route's."""
+    _hold_tp4(tmp_path, arch, (2, 2))
+
+
 @pytest.mark.parametrize("arch", list(TP4_RECURRENT))
 def test_tensor_parallel_train_step_of_the_recurrent_models_on_four_cards(cuda, tmp_path, arch):
     """Four cards, a (1, 4) mesh, float32: recurrentgemma-9b's widths at
@@ -1356,24 +1414,37 @@ def test_tensor_parallel_train_step_of_the_recurrent_models_on_four_cards(cuda, 
     _hold_tp4(tmp_path, arch)
 
 
-def _hold_tp4(tmp_path, arch: str) -> None:
+def _hold_tp4(tmp_path, arch: str, mesh_shape: tuple = (1, 4)) -> None:
     import json
 
     if torch.cuda.device_count() < 4:
         pytest.skip("needs four cards")
-    _spawn_four(_tp4_worker, tmp_path, arch)
+    _spawn_four(_tp4_worker, tmp_path, arch, mesh_shape)
     reports = [json.loads((tmp_path / f"tp4_r{r}.json").read_text()) for r in range(4)]
     for r, rep in enumerate(reports):
-        print(f"{arch} rank {r}: ms a step {rep['ms']}, peak bytes {rep['peak']}")
+        print(f"{arch} {mesh_shape} rank {r}: ms a step {rep['ms']}, peak bytes {rep['peak']}, "
+              f"exchanges {rep['exchanges']}, expert shard {rep.get('expert_shard')}")
     against = reports[0]["against_unsharded"]
     print(f"unsharded losses {reports[0]['losses']}; against them {against}")
+    cfg = _tp4_config(arch)
     for r, rep in enumerate(reports):
         assert rep["routes"] == {"tp": "tp", "gathered": "gathered"}
-        # Each rank holds a quarter of the weights and their moments.
+        # Each rank holds its share of the weights and their moments.
         assert max(rep["peak"]["tp"]) < max(rep["peak"]["gathered"])
+        if cfg.n_experts:
+            # Its experts and their hidden columns; 2 exchanges a layer in
+            # the forward, 2 in remat's recompute, on the tp route alone.
+            d, m = mesh_shape
+            assert rep["expert_shard"]["tp"] == [cfg.n_periods, cfg.n_experts // d,
+                                                 cfg.d_model, cfg.d_ff // m]
+            assert rep["exchanges"] == {"tp": [4 * cfg.n_layers * TP4_STEPS] * 2,
+                                        "gathered": [0, 0]}
     for got in against.values():
         np.testing.assert_allclose(got["losses"], reports[0]["losses"], **TP_TOL)
-    assert against["gathered"]["bit_identical"]
+    if mesh_shape[0] > 1:
+        assert not against["gathered"]["past_tolerance"], against["gathered"]["past_tolerance"]
+    else:
+        assert against["gathered"]["bit_identical"]
     if arch not in TP4_LAYERWISE:
         assert not against["tp"]["past_tolerance"], against["tp"]["past_tolerance"]
         return
@@ -1386,3 +1457,114 @@ def _hold_tp4(tmp_path, arch: str) -> None:
             if rel > TP_TOL["rtol"] or (past and what != "y"):
                 bad.append((layer["layer"], what, rel, past))
     assert not bad, bad
+
+
+def _moe_serve_worker(rank: int, store_path: str, out_dir: str) -> None:
+    """One of four NCCL ranks on a (2, 2) mesh: arctic-480b's widths at 1
+    layer with all 128 experts in bfloat16, a TP4_PREFILL prefill and one
+    serve step (the prompt's last token at position 0 of an empty cache)
+    under the serving table, on the tp route and the gathered route in
+    turns (tp, gathered, tp, gathered), from the same placed weights: each
+    route's last-position logits, and each rank's ms and peak memory a
+    turn."""
+    import os
+    import time
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_prefill_step
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store_path, 4), rank=rank, world_size=4)
+    try:
+        dev = torch.device("cuda", rank)
+        cfg = dataclasses.replace(get_config("arctic-480b"), n_layers=1)
+        b = TP4_PREFILL[0]
+        prompts = torch.from_numpy(np.random.default_rng(5).integers(
+            0, cfg.vocab_size, TP4_PREFILL)).to(dev)
+        mesh = make_mesh((2, 2), ("data", "model"))
+        params = init_params(cfg, seed=0, device=dev)
+
+        @torch.no_grad()
+        def decode(params, cache, batch, pos):
+            logits, cache = decode_step(params, cache, batch, pos, cfg)
+            return sh.unsplit(logits[:, -1], 1).to(torch.float32), cache
+
+        with sh.use_mesh(mesh, seq_shard=False, serve=True) as ctx:
+            p_spec = shd.param_specs_tree(params, ctx)
+            c_spec = shd.cache_specs_tree(init_cache(cfg, b, 16, device=dev), ctx, cfg.n_kv_heads)
+            rows = shd.per_batch(shd.batch_specs_tree({"tokens": prompts}, ctx))
+            paths = {route: (shd.sharded(make_prefill_step(cfg), (p_spec, rows),
+                                         (shd.per_batch(None),), ctx, cfg=cfg, route=route),
+                             shd.sharded(decode, (p_spec, shd.per_batch(c_spec), rows, None),
+                                         (shd.per_batch(None), shd.per_batch(c_spec)), ctx,
+                                         cfg=cfg, route=route))
+                     for route in ("tp", "gathered")}
+        placed = shd.place(params, p_spec, mesh)
+        del params
+        torch.cuda.empty_cache()
+        report = {"routes": {k: v[0].route for k, v in paths.items()}, "prefill_ms": {},
+                  "serve_ms": {}, "peak": {},
+                  "expert_bytes": sum(x.to_local().numel() * x.to_local().element_size()
+                                      for k, x in placed["periods"]["slot0"]["mix"].items()
+                                      if k in ("wg", "wu", "wd"))}
+        logits = {}
+        for turn in range(2):
+            for route, (prefill, serve) in paths.items():
+                cache = shd.place(init_cache(cfg, b, 16, device=dev), c_spec, mesh)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                last = prefill(placed, {"tokens": prompts})
+                torch.cuda.synchronize()
+                report["prefill_ms"].setdefault(route, []).append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                step, cache = serve(placed, cache, {"tokens": prompts[:, -1:]}, 0)
+                torch.cuda.synchronize()
+                report["serve_ms"].setdefault(route, []).append((time.perf_counter() - t0) * 1e3)
+                report["peak"].setdefault(route, []).append(torch.cuda.max_memory_allocated())
+                if turn == 0:
+                    logits[route] = (last.cpu(), step.cpu())
+                del cache, last, step
+        if rank == 0:
+            torch.save({"report": report, "logits": logits}, os.path.join(out_dir, "moe_serve.pt"))
+        else:
+            torch.save({"report": report}, os.path.join(out_dir, f"moe_serve_r{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_expert_parallel_prefill_and_serve_of_arctic_on_four_cards(cuda, tmp_path):
+    """Four cards, a (2, 2) mesh: arctic-480b's widths at 1 layer with all
+    128 of its experts in bfloat16 (``TP4_PREFILL``), a prefill and a serve
+    step on the tp route (64 experts a data rank, 2,432 hidden columns a
+    model rank, the tokens exchanged by an NCCL all-to-all) against the
+    gathered route (every expert gathered on every rank): the last-position
+    logits of both within ``FA_LOGITS_ATOL``, and the same argmax on every
+    row whose top-2 margin exceeds it; each rank's peak memory and ms
+    printed, the tp route's peak below the gathered route's."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    _spawn_four(_moe_serve_worker, tmp_path)
+    got = torch.load(tmp_path / "moe_serve.pt", weights_only=False)
+    reports = [got["report"]] + [torch.load(tmp_path / f"moe_serve_r{r}.pt")["report"]
+                                 for r in range(1, 4)]
+    for r, rep in enumerate(reports):
+        print(f"arctic-480b 1 layer, 128 experts, bf16, (2, 2) rank {r}: prefill ms "
+              f"{rep['prefill_ms']}, serve step ms {rep['serve_ms']}, peak bytes {rep['peak']}, "
+              f"expert bytes held {rep['expert_bytes']}")
+        assert rep["routes"] == {"tp": "tp", "gathered": "gathered"}
+        assert max(rep["peak"]["tp"]) < min(rep["peak"]["gathered"])
+    for i, what in enumerate(("prefill", "serve step")):
+        tp, whole = got["logits"]["tp"][i], got["logits"]["gathered"][i]
+        gap = float((tp - whole).abs().max())
+        top2 = torch.topk(whole, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > FA_LOGITS_ATOL
+        same = torch.equal(tp.argmax(-1)[clear], whole.argmax(-1)[clear])
+        print(f"arctic {what}: tp route's last-position logits max gap {gap:.4e} from the "
+              f"gathered route's; argmax equal on the {int(clear.sum())} rows whose top-2 margin "
+              f"exceeds {FA_LOGITS_ATOL}: {same}")
+        assert gap <= FA_LOGITS_ATOL and same, what

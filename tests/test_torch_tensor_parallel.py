@@ -22,24 +22,40 @@ Held here:
   tokens against the unsharded ones, under the serving table (``d_head``
   split over ``model``) and the train table (heads, or the sequence of the
   cache where the KV heads do not divide the axis);
-* six configs: internlm2-1.8b's smoke size and the same with a
+* nine configs: internlm2-1.8b's smoke size and the same with a
   vocabulary that does not divide the axis, a glm4-like one with fewer KV
   heads than ``model`` ranks (each rank's query heads on one KV head), one
-  whose ranks' query heads straddle their KV heads, and recurrentgemma-9b's
-  and rwkv6-7b's smoke sizes (trained at ``RECURRENT_SEQ``'s lengths);
+  whose ranks' query heads straddle their KV heads, recurrentgemma-9b's
+  and rwkv6-7b's smoke sizes (trained at ``RECURRENT_SEQ``'s lengths), and
+  the routed experts (``MOE``): granite-moe-3b-a800m's smoke size at the
+  capacity factor 1.25 (its own 8.0 drops no pair), arctic-480b's (a dense
+  residual beside the experts) and granite's with 5 experts, which do not
+  divide over 2 data-parallel ranks (gathered over ``data``, no exchange);
+  the experts that divide stay split over ``data``, and the tokens travel
+  to them (``sh.expert_exchange``, an all-to-all);
 * no all-gather over the ``model`` group inside a step has the shape of a
-  weight split over ``model`` (read from the recorded collectives, which
-  do show such gathers on the gathered route);
+  weight split over ``model``, nor one over the ``data`` group the shape
+  of an expert weight split over ``data`` (read from the recorded
+  collectives, which do show such gathers on the gathered route);
 * each rank's matmul FLOPs (``FlopCounterMode``) in a train step at (1, 2)
-  are at most ``FLOP_SHARE`` of the unsharded step's, for internlm2 and
-  the two recurrent models;
+  are at most ``FLOP_SHARE`` of the unsharded step's, for internlm2,
+  granite and the two recurrent models; a rank does 1/(d·m) of an MoE
+  layer's expert products (forward and backward) at (1, 2) and (2, 2);
+* the exchange at (2, 2): each rank receives its experts' slots from
+  every data-parallel rank, in their order; its backward sends every
+  rank's rows' gradients home and sums them into a rank's experts; the
+  recorder sees one all-to-all each way a layer over the ``data`` group,
+  and no all-reduce over it of an expert weight's gradient;
+* where a sharded prefill or serve step routes a token to other experts
+  than the unsharded one, the top-k margin there is printed;
 * the DTensor ops a recurrent model's forward dispatches do not grow with
   the sequence (the RWKV-6 chunk loop and the RG-LRU scan's passes run on
   local tensors behind their seams);
-* the route each config takes (``compute_route``: the MoE models keep the
-  gathered one), and the dry run of internlm2-1.8b, recurrentgemma-9b and
-  rwkv6-7b × decode_32k on the route: their useful-FLOP ratios and
-  all-gather bytes against the gathered route's.
+* the route each config takes (``compute_route``: every config of the zoo
+  takes ``"tp"``), and the dry run of internlm2-1.8b, recurrentgemma-9b,
+  rwkv6-7b, granite-moe-3b-a800m and arctic-480b × decode_32k on the
+  route: their useful-FLOP ratios and all-gather bytes against the
+  gathered route's.
 """
 
 import contextlib
@@ -65,7 +81,8 @@ from repro_torch.launch import shardings as shd
 from repro_torch.launch.hlo_stats import StepRecorder
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_train_step
-from repro_torch.models import decode_step, init_cache, init_params
+from repro_torch.models import decode_step, init_cache, init_params, layers
+from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw_init
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -140,14 +157,28 @@ def _configs() -> dict:
         "recurrentgemma": get_config("recurrentgemma-9b", smoke=True),
         # 4 RWKV-6 heads of 16.
         "rwkv6": get_config("rwkv6-7b", smoke=True),
+        # 8 experts, top 2, at 1.25: 7 slots an expert in a row of 24
+        # tokens, so pairs are dropped (its smoke factor, 8.0, drops none).
+        "granite": dataclasses.replace(get_config("granite-moe-3b-a800m", smoke=True),
+                                       **MOE_CUTS["granite"]),
+        # 8 experts, top 2, and a dense SwiGLU residual beside them.
+        "arctic": get_config("arctic-480b", smoke=True),
+        # 5 experts: at 2 data-parallel ranks they do not divide, so they
+        # are placed at P(None, "data", "model") (gathered over ``data``,
+        # no exchange), only each expert's hidden split over ``model``.
+        "granite_e5": dataclasses.replace(get_config("granite-moe-3b-a800m", smoke=True),
+                                          n_experts=5),
     }
 
 
+# What a config of _configs() changes of the reference's smoke config.
+MOE_CUTS = {"granite": dict(capacity_factor=1.25)}
 # The configs held to the reference's losses and counted for FLOPs: the
 # reference's config each stands for.
 ARCHS = {"internlm2": "internlm2-1.8b", "recurrentgemma": "recurrentgemma-9b",
-         "rwkv6": "rwkv6-7b"}
+         "rwkv6": "rwkv6-7b", "granite": "granite-moe-3b-a800m"}
 RECURRENT = ("recurrentgemma", "rwkv6")
+MOE = ("granite", "arctic", "granite_e5")
 
 
 def _seq(cfg) -> int:
@@ -178,27 +209,82 @@ def _make_decode(cfg):
     return step
 
 
-def _split_weight_shapes(params, p_spec, m: int) -> set:
-    """What an all-gather over ``model`` of a weight split over it (or of
-    a period's slice of one) returns: the ranks' shards stacked on dim 0
-    (DTensor gathers a shard of another dim so, then moves the parts), the
-    shape that such a gather must never have."""
-    out = set()
+def _expert_dims(s) -> list:
+    """The dims that spec ``s`` splits over ``data`` as the batch is (an
+    expert weight's, which a step on the tp route keeps split)."""
+    return [d for d, e in enumerate(s) if isinstance(e, tuple) and "data" in e]
+
+
+def _step_shards(params, p_spec, shape) -> list:
+    """Each weight's shard as a step on the tp route holds it, and its
+    spec: split over ``model``, and over ``data`` where it is an expert
+    weight's (gathered over ``data`` otherwise)."""
+    out = []
     for x, s in zip(tree_leaves(params), tree_leaves(p_spec)):
-        dims = [d for d, e in enumerate(s) if "model" in sh._axes(e)]
-        if not dims:
-            continue
-        for shape, d in ((list(x.shape), dims[0]), (list(x.shape[1:]), dims[0] - 1)):
-            if d < 0:
-                continue
-            shape[d] //= m
-            shape[0] *= m
-            out.add(tuple(shape))
+        local = list(x.shape)
+        for d in _expert_dims(s):
+            local[d] //= shape[0]
+        for d, e in enumerate(s):
+            if "model" in sh._axes(e):
+                local[d] //= shape[1]
+        out.append((local, s))
     return out
 
 
-def _model_gathers(rec, ranks) -> list:
-    return [shape for kind, shape, group in rec.shapes if kind == "all-gather" and group == ranks]
+def _split_weight_shapes(params, p_spec, shape) -> dict:
+    """What an all-gather of a weight's shard (or of a period's slice of
+    one) over the ``model`` ranks, where the weight is split over
+    ``model``, or over the ``data`` ranks, where it is an expert weight
+    split over them, returns: the ranks' shards stacked on dim 0 (DTensor
+    gathers a shard of another dim so, then moves the parts), the shapes
+    that such a gather must never have: {axis: shapes}."""
+    out = {"model": set(), "data": set()}
+    for local, s in _step_shards(params, p_spec, shape):
+        for axis, n, split in (("model", shape[1], any("model" in sh._axes(e) for e in s)),
+                               ("data", shape[0], bool(_expert_dims(s)))):
+            if not split:
+                continue
+            for part in (list(local), list(local[1:])):
+                if part:
+                    part[0] *= n
+                    out[axis].add(tuple(part))
+    return out
+
+
+def _bad_gathers(rec, groups: dict, shapes: dict) -> list:
+    """The all-gathers over a group of ``groups`` ({axis: its ranks}) whose
+    result has one of ``shapes[axis]``."""
+    return [(axis, shape) for kind, shape, group in rec.shapes for axis, ranks in groups.items()
+            if kind == "all-gather" and group == ranks and shape in shapes[axis]]
+
+
+def _expert_shards(params, p_spec, shape) -> set:
+    """The shapes of the expert weights' shards (and of a period's slice
+    of one) as the step holds them."""
+    return {t for local, s in _step_shards(params, p_spec, shape) if _expert_dims(s)
+            for t in (tuple(local), tuple(local[1:]))}
+
+
+@contextlib.contextmanager
+def _routes():
+    """Inside the block, every routing a MoE layer makes (``MoE._route``,
+    on the rows it sees) is noted: its top-k experts (B, S, k) and the
+    smallest gap between its k + 1 largest gates a token (B, S), the
+    margin a choice has against a rounding of the gates."""
+    calls, route = [], layers.MoE._route
+
+    def spy(self, x, router, cap):
+        gates = torch.softmax(x.detach().to(torch.float32) @ router.detach(), dim=-1)
+        top = torch.topk(gates, self.top_k + 1, dim=-1)
+        gaps = top.values[..., :-1] - top.values[..., 1:]
+        calls.append((top.indices[..., :-1], gaps.min(dim=-1).values))
+        return route(self, x, router, cap)
+
+    layers.MoE._route = spy
+    try:
+        yield calls
+    finally:
+        layers.MoE._route = route
 
 
 def _weights() -> dict:
@@ -212,7 +298,8 @@ def _worker(rank, shape, store_path, out_dir):
                             world_size=n)
     try:
         mesh = make_mesh(shape, ("data", "model"), device="cpu")
-        model_ranks = tuple(dist.get_process_group_ranks(mesh.get_group("model")))
+        groups = {axis: tuple(dist.get_process_group_ranks(mesh.get_group(axis)))
+                  for axis in ("data", "model")}
         out = {}
         weights = _weights()
         for name, cfg in _configs().items():
@@ -225,7 +312,7 @@ def _worker(rank, shape, store_path, out_dir):
                 step = shd.sharded(make_train_step(cfg, 1, lr=LR),
                                    (p_spec, o_spec, shd.per_batch(b_spec)),
                                    (p_spec, o_spec, None), ctx, cfg=cfg)
-            split_shapes = _split_weight_shapes(params, p_spec, shape[1])
+            split_shapes = _split_weight_shapes(params, p_spec, shape)
             p, o = shd.place(params, p_spec, mesh), shd.place(adamw_init(params), o_spec, mesh)
             rec, losses, states = StepRecorder(), [], []
             for i, b in enumerate(_batches(cfg, TRAIN_STEPS)):
@@ -234,8 +321,14 @@ def _worker(rank, shape, store_path, out_dir):
                 losses.append(m["loss"])
                 states.append(_full([p, o]))
             res["train"] = {"route": step.route, "losses": losses, "states": states,
-                            "bad_gathers": [g for g in _model_gathers(rec, model_ranks)
-                                            if g in split_shapes]}
+                            "bad_gathers": _bad_gathers(rec, groups, split_shapes)}
+            if name in MOE:
+                experts = _expert_shards(params, p_spec, shape)
+                res["train"]["exchanges"] = _exchanges(rec, groups["data"])
+                res["train"]["expert_grad_sums"] = [
+                    s for kind, s, group in rec.shapes
+                    if kind == "all-reduce" and group == groups["data"] and s in experts]
+                res["expert_flops"] = _moe_layer_flops(cfg, params, mesh)
             if name in ARCHS and shape == (1, 2):
                 b = _batches(cfg, 1)[0]
                 with FlopCounterMode(display=False) as flops:
@@ -254,8 +347,7 @@ def _worker(rank, shape, store_path, out_dir):
                 with rec:
                     g_step(p, o, b)
                 res["gathered_route"] = g_step.route
-                res["gathered_bad"] = [g for g in _model_gathers(rec, model_ranks)
-                                       if g in split_shapes]
+                res["gathered_bad"] = _bad_gathers(rec, groups, split_shapes)
             for serve_rules in (True, False):
                 with sh.use_mesh(mesh, seq_shard=False, serve=serve_rules) as ctx:
                     cache = init_cache(cfg, BATCH, CACHE_LEN, device="cpu")
@@ -272,10 +364,10 @@ def _worker(rank, shape, store_path, out_dir):
                                          (p_spec, shd.per_batch(c_spec), rows, None),
                                          (shd.per_batch(None), shd.per_batch(c_spec)), ctx,
                                          cfg=cfg)
-                split_shapes = _split_weight_shapes(params, p_spec, shape[1])
+                split_shapes = _split_weight_shapes(params, p_spec, shape)
                 sp = shd.place(params, p_spec, mesh)
-                rec = StepRecorder()
-                with rec:
+                rec, pre_rec = StepRecorder(), StepRecorder()
+                with pre_rec, _routes() as routed:
                     logits = prefill(sp, {"tokens": _prompt(cfg)})
                 toks, step_logits = [], []
                 caches = [shd.place(cache, c_spec, mesh),
@@ -283,8 +375,9 @@ def _worker(rank, shape, store_path, out_dir):
                                     mesh)]
                 for t in range(SERVE_STEPS):
                     feed = {"tokens": _prompt(cfg)[:, t:t + 1].to(torch.int32)}
-                    with rec if t == 0 else contextlib.nullcontext():
+                    with rec if t == 0 else contextlib.nullcontext(), _routes() as step_routed:
                         tok, caches[0] = serve(sp, caches[0], feed, t)
+                    routed += step_routed
                     lg, caches[1] = decode(sp, caches[1], feed, t)
                     toks.append(tok)
                     step_logits.append(lg)
@@ -292,13 +385,84 @@ def _worker(rank, shape, store_path, out_dir):
                     "routes": (prefill.route, serve.route, decode.route),
                     "prefill": logits, "tokens": torch.stack(toks, 1),
                     "logits": torch.stack(step_logits, 1), "cache": _full(caches[0]),
-                    "bad_gathers": [g for g in _model_gathers(rec, model_ranks)
-                                    if g in split_shapes]}
+                    "bad_gathers": (_bad_gathers(pre_rec, groups, split_shapes)
+                                    + _bad_gathers(rec, groups, split_shapes)),
+                    "routed": routed, "exchanges": _exchanges(pre_rec, groups["data"])}
         if shape == (1, 2):
             out["recorders"] = _recorders(mesh["model"])
+        if shape == (2, 2):
+            out["exchange"] = _exchange_probe(mesh)
+        out["coords"] = (mesh.get_local_rank("data"), mesh.get_local_rank("model"))
         torch.save(out, os.path.join(out_dir, f"r{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def _exchanges(rec, data_ranks) -> list:
+    """The all-to-alls ``rec`` saw, each (result shape, over the ``data``
+    group)."""
+    return [(shape, group == data_ranks) for kind, shape, group in rec.shapes
+            if kind == "all-to-all"]
+
+
+def _moe_layer_flops(cfg, params, mesh=None) -> int:
+    """The FLOPs of the batched products (``aten.bmm``) of one MoE layer's
+    forward and backward on a (BATCH, SEQ) residual: its expert products
+    (the router's and the dense residual's products are not batched). On
+    ``mesh``, each rank's own (``LocalFlopCounter``, the step on the tp
+    route, its rows of the residual); else the unsharded layer's."""
+    from repro_torch.launch.hlo_stats import LocalFlopCounter
+
+    blk = tf._mix_block(cfg, cfg.mix[0])
+    p = tf._index(params["periods"]["slot0"]["mix"], 0)
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(BATCH, SEQ, cfg.d_model, generator=gen)
+
+    def step(p, x):
+        diff = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        x = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            y = blk.forward(diff, x)
+            torch.autograd.grad(sh.unsplit(y.sum()), tree_leaves(diff) + [x])
+        return ()
+
+    if mesh is None:
+        counter, run = FlopCounterMode(display=False), lambda: step(p, x)
+    else:
+        with sh.use_mesh(mesh) as ctx:
+            p_spec = shd.param_specs_tree(p, ctx)
+            split = shd.sharded(step, (p_spec, shd.per_batch(ctx.spec("residual"))), (), ctx,
+                                cfg=cfg)
+        placed = shd.place(p, p_spec, mesh)
+        counter, run = LocalFlopCounter(display=False), lambda: split(placed, x)
+    with counter:
+        run()
+    return {str(k): v for k, v in counter.get_flop_counts()["Global"].items()}["aten.bmm"]
+
+
+def _exchange_probe(mesh) -> dict:
+    """``sh.expert_exchange`` over the ``data`` ranks of ``mesh`` of a (2,
+    4, 3, 5) dispatch (B, E, C, D) whose entries are coded by the data
+    rank, as a DTensor replicated over ``model``, and back: what this
+    rank received and got back, and for a product of the received slots
+    with this rank's experts' weight (E/2, C, D) (coded the same way), the
+    gradients of the dispatch and of the weight."""
+    from torch.distributed.tensor import Replicate
+
+    d = mesh.get_local_rank("data")
+    sub = mesh["model"]
+    x = (torch.arange(2 * 4 * 3 * 5, dtype=torch.float32).reshape(2, 4, 3, 5)
+         + 1000 * d).requires_grad_(True)
+    w = (torch.arange(2 * 3 * 5, dtype=torch.float32).reshape(2, 3, 5)
+         + 100 * d).requires_grad_(True)
+    with sh.tensor_parallel(sub), sh.expert_parallel(mesh["data"]):
+        xd = DTensor.from_local(x, sub, [Replicate()], run_check=False)
+        wd = DTensor.from_local(w, sub, [Replicate()], run_check=False)
+        got = sh.expert_exchange(xd, 1, 0)
+        back = sh.expert_exchange(got, 0, 1)
+        (got * wd).sum().backward()
+    return {"input": x.detach(), "weight": w.detach(), "got": got.to_local().detach(),
+            "back": back.to_local().detach(), "x_grad": x.grad, "w_grad": w.grad}
 
 
 def _forward_dtensor_ops(cfg, params, p_spec, mesh) -> dict:
@@ -472,7 +636,8 @@ def test_train_losses_are_the_references(ranks, shape):
     from repro.optim import adamw_init as r_adamw_init
 
     for name, arch in ARCHS.items():
-        r_step = jax.jit(r_make_train_step(r_get_config(arch, smoke=True), shape[0], lr=LR))
+        r_cfg = dataclasses.replace(r_get_config(arch, smoke=True), **MOE_CUTS.get(name, {}))
+        r_step = jax.jit(r_make_train_step(r_cfg, shape[0], lr=LR))
         p = tree_map(lambda x: x.numpy(), ranks["weights"][name])
         o = r_adamw_init(p)
         got = ranks[shape][0][name]["train"]["losses"]
@@ -482,27 +647,52 @@ def test_train_losses_are_the_references(ranks, shape):
                                        err_msg=name)
 
 
+def _route_flips(got: list, want: list, rows: slice) -> list[str]:
+    """A line for each token of a sharded rank's routings (``got``, one
+    entry a MoE layer call, on its rows) whose top-k experts differ from
+    the unsharded routings' (``want``, on every row; ``rows`` the rank's),
+    with the unsharded gates' smallest top-k margin there."""
+    out = []
+    for call, ((g_e, _), (w_e, w_gap)) in enumerate(zip(got, want, strict=True)):
+        w_e, w_gap = w_e[rows], w_gap[rows]
+        for b, s in (g_e != w_e).any(dim=-1).nonzero().tolist():
+            out.append(f"call {call} row {b} token {s}: experts {g_e[b, s].tolist()} against "
+                       f"{w_e[b, s].tolist()}, top-k margin {float(w_gap[b, s]):.3e}")
+    return out
+
+
 @pytest.mark.parametrize("serve_rules", [True, False])
 @pytest.mark.parametrize("shape,name", CASES)
 def test_prefill_and_serve_are_the_unsharded_steps(ranks, shape, name, serve_rules):
     """The prefill's logits, each serve step's logits within
     ``LOGITS_TOL`` of the unsharded steps', the greedy tokens equal, and
     the final cache within ``DP4_TOL``, under the serving table (``d_head``
-    split) and the train table."""
+    split) and the train table. Where a MoE model's sharded prefill or
+    serve step routes a token otherwise, the top-k margin is printed."""
     cfg = _configs()[name]
     params = ranks["weights"][name]
-    want_prefill = make_prefill_step(cfg)(params, {"tokens": _prompt(cfg)})
+    with _routes() as routed:
+        want_prefill = make_prefill_step(cfg)(params, {"tokens": _prompt(cfg)})
     cache = init_cache(cfg, BATCH, CACHE_LEN, device="cpu")
     l_cache = init_cache(cfg, BATCH, CACHE_LEN, device="cpu")
     serve = make_serve_step(cfg)
     toks, logits = [], []
     for t in range(SERVE_STEPS):
         feed = {"tokens": _prompt(cfg)[:, t:t + 1].to(torch.int32)}
-        tok, cache = serve(params, cache, feed, t)
+        with _routes() as step_routed:
+            tok, cache = serve(params, cache, feed, t)
+        routed += step_routed
         with torch.no_grad():
             lg, l_cache = decode_step(params, l_cache, feed, t, cfg)
         toks.append(tok)
         logits.append(lg[:, -1].to(torch.float32))
+    for r in ranks[shape]:
+        d = r["coords"][0]
+        rows = slice(d * BATCH // shape[0], (d + 1) * BATCH // shape[0])
+        flips = _route_flips(r[name][f"serve_{serve_rules}"]["routed"], routed, rows)
+        if flips:
+            print(f"{name} {shape} rank coordinates {r['coords']}: routed otherwise than "
+                  "unsharded at\n" + "\n".join(flips))
     for r in ranks[shape]:
         got = r[name][f"serve_{serve_rules}"]
         assert got["routes"] == ("tp", "tp", "tp")
@@ -532,10 +722,15 @@ def test_no_split_weight_is_gathered_over_model(ranks, shape):
 
 def test_each_rank_does_its_share_of_the_matmuls(ranks):
     """At (1, 2) each rank's matmul FLOPs in a train step of internlm2,
-    recurrentgemma and rwkv6 are at most ``FLOP_SHARE`` of the unsharded
-    step's on the same batch: the projections, the RG-LRU gates and the
-    RWKV-6 chunk products split too (what every rank repeats: RWKV-6's
-    decay LoRA down-projection)."""
+    recurrentgemma, rwkv6 and granite are at most ``FLOP_SHARE`` of the
+    unsharded step's on the same batch: the projections, the RG-LRU gates,
+    the RWKV-6 chunk products and the expert products split too (what
+    every rank repeats: RWKV-6's decay LoRA down-projection, the router).
+    At (1, 2) and (2, 2) a rank does exactly 1/(d·m) of a MoE layer's
+    expert products, forward and backward: its rows' share over d
+    data-parallel ranks (the exchange brings every rank's rows to its
+    experts, E/d of them, or each rank keeps its rows and every expert
+    where they do not divide), its hidden columns' over m."""
     for name in ARCHS:
         cfg = _configs()[name]
         params = ranks["weights"][name]
@@ -545,6 +740,63 @@ def test_each_rank_does_its_share_of_the_matmuls(ranks):
         whole = flops.get_total_flops()
         for r in ranks[(1, 2)]:
             assert 0 < r[name]["flops"] <= FLOP_SHARE * whole, (name, r[name]["flops"], whole)
+    for name in MOE:
+        whole = _moe_layer_flops(_configs()[name], ranks["weights"][name])
+        for shape in MESH_SHAPES:
+            for r in ranks[shape]:
+                got = r[name]["expert_flops"]
+                assert 0 < got and got * shape[0] * shape[1] == whole, (name, shape, got, whole)
+
+
+def test_each_rank_receives_its_experts_rows(ranks):
+    """``sh.expert_exchange`` at (2, 2), on a dispatch (B, E, C, D) coded
+    by the data rank, a DTensor replicated over ``model``: data rank j
+    receives experts [j·E/2, (j+1)·E/2)'s slots of every data rank's rows,
+    rank 0's rows first, and the way back returns each rank its own
+    dispatch. In the backward of a product of the slots received with
+    this rank's experts' weight, that weight's gradient is the sum of
+    every data rank's rows, and each rank's dispatch gets its own rows'
+    gradients back from the ranks of its experts."""
+    probes = [(r["coords"], r["exchange"]) for r in ranks[(2, 2)]]
+    inputs = {c[0]: e["input"] for c, e in probes}
+    weights = {c[0]: e["weight"] for c, e in probes}
+    half = 2
+    for (d, _), e in probes:
+        mine = torch.cat([inputs[j][:, d * half:(d + 1) * half] for j in (0, 1)])
+        assert torch.equal(e["got"], mine)
+        assert torch.equal(e["back"], inputs[d])
+        assert torch.equal(e["w_grad"], mine.sum(dim=0))
+        home = torch.cat([weights[j].expand(2, half, 3, 5) for j in (0, 1)], dim=1)
+        assert torch.equal(e["x_grad"], home)
+
+
+@pytest.mark.parametrize("shape", MESH_SHAPES)
+def test_tokens_cross_the_data_axes_by_an_all_to_all(ranks, shape):
+    """In a MoE model's sharded prefill the recorder sees one all-to-all
+    each way a layer, over the ``data`` group, of this rank's experts'
+    slots of every data rank's rows (none where the experts do not divide
+    over ``data``); in the train step also one each way in the backward
+    and in remat's recompute. No all-reduce over the ``data`` group in the
+    train step has the shape of an expert weight's shard: an expert's
+    gradient already sums every rank's rows, and a sum over the data ranks
+    would add different experts together."""
+    for r in ranks[shape]:
+        for name in MOE:
+            cfg = _configs()[name]
+            split = cfg.n_experts % shape[0] == 0
+            per_layer = 2 if split else 0
+            cap = layers.MoE(cfg.d_ff, cfg.n_experts, cfg.top_k, cfg.capacity_factor).capacity
+            for serve_rules in (True, False):
+                seen = r[name][f"serve_{serve_rules}"]["exchanges"]
+                # What the all-to-all returns: a chunk from each data rank.
+                slots = (shape[0], BATCH // shape[0], cfg.n_experts // shape[0], cap(PROMPT),
+                         cfg.d_model)
+                assert seen == [(slots, True)] * per_layer * cfg.n_layers, (name, seen)
+            train = r[name]["train"]
+            passes = 3 if cfg.remat else 2
+            assert len(train["exchanges"]) == per_layer * passes * cfg.n_layers, name
+            assert all(over_data for _, over_data in train["exchanges"]), name
+            assert train["expert_grad_sums"] == [], (name, train["expert_grad_sums"])
 
 
 @pytest.mark.parametrize("name", RECURRENT)
@@ -567,16 +819,19 @@ class _StandIn:
         self.devices = np.empty(shape, dtype=object)
 
 
-GATHERED_ARCHS = {"granite-moe-3b-a800m", "arctic-480b"}
+# The configs that keep the gathered route under the "tp" tables: none, now
+# that the routed experts split too.
+GATHERED_ARCHS: set = set()
 
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_each_config_takes_its_route(arch):
-    """Dense and recurrent models split over a ``model`` axis of more than
-    one rank under the ``"tp"`` tables; the MoE models, the ``"dp"``
-    table, a step with no config and a ``model`` axis of one rank keep the
-    gathered route. Asked for, ``"tp"`` is taken at one rank too, and
-    refused where the default would not split but for the axis' size."""
+    """Every config of the zoo (dense, recurrent and MoE models) splits
+    over a ``model`` axis of more than one rank under the ``"tp"`` tables;
+    the ``"dp"`` table, a step with no config and a ``model`` axis of one
+    rank keep the gathered route. Asked for, ``"tp"`` is taken at one rank
+    too, and refused where the default would not split but for the axis'
+    size."""
     cfg = get_config(arch)
     want = "gathered" if arch in GATHERED_ARCHS else "tp"
     for serve in (False, True):
@@ -611,6 +866,18 @@ def test_recurrent_widths_that_do_not_divide_model_are_refused():
             assert shd.compute_route(ctx, cfg, "gathered") == "gathered", arch
 
 
+def test_expert_widths_that_do_not_divide_model_are_refused():
+    """The tp route of a MoE config whose expert hidden (``d_ff``) does
+    not divide the ``model`` axis raises (its experts are not computed
+    whole on every rank); the gathered route stays open."""
+    for arch in ("granite-moe-3b-a800m", "arctic-480b"):
+        cfg = dataclasses.replace(get_config(arch), d_ff=500)
+        with sh.use_mesh(_StandIn((16, 16), ("data", "model"))) as ctx:
+            with pytest.raises(ValueError, match="do not divide"):
+                shd.compute_route(ctx, cfg)
+            assert shd.compute_route(ctx, cfg, "gathered") == "gathered", arch
+
+
 # The gathered route's dry run of internlm2-1.8b × decode_32k, single pod,
 # "tp" rules (each rank gathering every weight and running the whole
 # model on its rows): its useful-FLOP ratio and its all-gather bytes a
@@ -634,10 +901,10 @@ def _dryrun_decode_cells(archs) -> list[dict]:
 def test_dryrun_decode_cell_on_the_tp_route():
     """The dry run of internlm2-1.8b × decode_32k and granite's: the dense
     cell on the ``"tp"`` route with at least 4x the gathered route's
-    useful-FLOP ratio and less all-gather; granite's on the gathered
-    route."""
+    useful-FLOP ratio and less all-gather; granite's on the ``"tp"`` route
+    too."""
     dense, moe = _dryrun_decode_cells(("internlm2-1.8b", "granite-moe-3b-a800m"))
-    assert dense["route"] == "tp" and moe["route"] == "gathered"
+    assert dense["route"] == "tp" and moe["route"] == "tp"
     assert dense["useful_flops_ratio"] >= 4 * GATHERED_DECODE_RATIO
     assert dense["collectives"]["all-gather"] < GATHERED_DECODE_ALL_GATHER
 
@@ -658,6 +925,27 @@ def test_dryrun_recurrent_decode_cells_on_the_tp_route():
         assert rec["route"] == "tp", rec["arch"]
         assert rec["useful_flops_ratio"] > ratio, rec["arch"]
         assert rec["collectives"]["all-gather"] < gathered, rec["arch"]
+
+
+# The same for the MoE models, from the dry run before their experts were
+# split (every rank gathering every expert whole over both axes).
+GATHERED_MOE_DECODE = {"granite-moe-3b-a800m": (0.0022, 22.78e9),
+                       "arctic-480b": (0.0010, 984.18e9)}
+
+
+def test_dryrun_moe_decode_cells_on_the_tp_route():
+    """The dry run of granite-moe-3b-a800m and arctic-480b × decode_32k:
+    on the ``"tp"`` route, each with a higher useful-FLOP ratio and less
+    all-gather than its gathered route's; arctic's 128 experts divide over
+    ``data`` (16), so its tokens travel to them by an all-to-all (granite's
+    40 do not: they are gathered over ``data``, and only each expert's
+    hidden is split)."""
+    cells = _dryrun_decode_cells(tuple(GATHERED_MOE_DECODE))
+    for rec, (ratio, gathered) in zip(cells, GATHERED_MOE_DECODE.values(), strict=True):
+        assert rec["route"] == "tp", rec["arch"]
+        assert rec["useful_flops_ratio"] > ratio, rec["arch"]
+        assert rec["collectives"]["all-gather"] < gathered, rec["arch"]
+    assert cells[1]["collectives"]["all-to-all"] > 0
 
 
 def test_recorders_see_each_ranks_local_ops(ranks):
