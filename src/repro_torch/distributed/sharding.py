@@ -60,7 +60,7 @@ import threading
 
 __all__ = ["P", "ShardingCtx", "activate", "cache_logical", "compute_mesh", "constrain",
            "current", "data_parallel", "data_parallel_size", "data_parallel_sum", "einsum",
-           "exchange_counts", "expert_exchange", "expert_parallel",
+           "exchange_counts", "expert_exchange", "expert_parallel", "expert_part",
            "gather_shards", "laid_out_as", "local_seam", "mesh_axis_sizes", "model_rank",
            "own_part", "placements", "replicated", "reset_exchange_counts", "resume",
            "snapshot", "spec", "tensor_parallel", "unsplit", "use_mesh"]
@@ -271,12 +271,15 @@ def _axes(entry) -> tuple:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def placements(s: P, mesh) -> tuple:
+def placements(s: P, mesh, ndim: int | None = None) -> tuple:
     """DTensor placements of ``s`` over ``mesh``, one a mesh dimension:
     ``Shard(d)`` where tensor dim ``d`` is split over it, else
     ``Replicate()``. A dim split over several axes (``("pod", "data")``)
     is split over them major first, which is DTensor's order too, so the
-    axes must come in the mesh's order."""
+    axes must come in the mesh's order. Given the tensor's ``ndim``, an
+    entry past its dims is read as whole where its axes have one rank (the
+    storage-format trees' ``_drop_misfits`` keeps such an entry, since 1
+    divides every size) and raises elsewhere."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = list(mesh.mesh_dim_names)
@@ -289,6 +292,10 @@ def placements(s: P, mesh) -> tuple:
             idx.append(names.index(axis))
         if idx != sorted(idx):
             raise ValueError(f"{s}: the axes of dim {dim} are not in the mesh's order {names}")
+        if ndim is not None and dim >= ndim:
+            if any(mesh.size(i) > 1 for i in idx):
+                raise ValueError(f"{s}: dim {dim} of a {ndim}-dim tensor is split")
+            continue
         for i in idx:
             if isinstance(out[i], Shard):
                 raise ValueError(f"{s}: axis {names[i]!r} shards two dims")
@@ -478,6 +485,17 @@ def _expert_dims_of(x) -> tuple:
     an expert weight (a leaf :func:`expert_parallel` names), else ()."""
     ep = getattr(_state, "ep", None)
     return ep[1] if ep is not None and x is not None and id(x) in ep[2] else ()
+
+
+def expert_part(x) -> tuple[int, int]:
+    """(this rank's chunk, the chunks) of ``x``'s split over the
+    data-parallel ranks of the current step's expert exchange, where the
+    step sees ``x`` split so (a leaf :func:`expert_parallel` names); (0, 1)
+    for any other tensor."""
+    if not _expert_dims_of(x):
+        return 0, 1
+    mesh = _state.ep[0]
+    return int(mesh.get_local_rank()), int(mesh.size())
 
 
 def exchange_counts() -> dict:

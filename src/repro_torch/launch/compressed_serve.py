@@ -29,7 +29,11 @@ five float32 scalars per leaf), with the reference's bytes;
 in plain PyTorch (:func:`dequantize_leaf`, the reference's
 ``dequantize_leaf_jnp``, which XLA fuses into the consuming matmul) before
 ``decode_step``. :func:`compressed_param_specs` gives the same tree's
-stand-ins on the ``meta`` device.
+stand-ins on the ``meta`` device. On a mesh (``launch.shardings``:
+``place`` the host tree by ``compressed_param_specs_tree``, each rank
+uploading only its part) the step's ``"tp"`` route rebuilds on each rank
+only its shard of each weight, as the reference's GSPMD partitions
+``dequantize_leaf_jnp`` (:func:`dequantize_params`, :func:`rebuild_cases`).
 
 One difference from the reference, on purpose: :func:`_quantizable` counts
 bfloat16 and float16 leaves as floating. The reference's
@@ -50,19 +54,23 @@ import numpy as np
 import torch
 
 from ..core.quantize import dequantize_linear, extract_msb, quantize_delta, quantize_linear
+from ..distributed import sharding as sh
+from ..distributed.sharding import P
 from ..kernels.ops import resolve_device
 from ..models import decode_step
 from ..models.config import ModelConfig
 from ..models.transformer import _dtype
 from ..tree import tree_leaves, tree_map
+from .shardings import _axis_size, _expert_axes, _map_with_path, compressed_param_specs_tree
 from .specs import _spec, model_specs
+from .steps import _inference
 
 __all__ = [
     "DecoderSpec", "MaterializedProvider", "decoder_architecture",
     "greedy_decode", "init_decoder_tensors", "save_decoder",
     "spec_from_architecture", "tensors_from_reference", "quantize_params",
-    "quantize_leaf", "quantized_to_device", "dequantize_leaf",
-    "make_compressed_serve_step", "compressed_param_specs",
+    "quantize_leaf", "quantized_to_device", "dequantize_leaf", "dequantize_params",
+    "make_compressed_serve_step", "compressed_param_specs", "rebuild_cases",
 ]
 
 # Leaves smaller than this stay raw (norm vectors, biases). Both are read
@@ -405,46 +413,218 @@ def quantized_to_device(qparams, device="cuda"):
     return _map_quantized(place, qparams)
 
 
-def dequantize_leaf(q: dict, dtype=torch.bfloat16) -> torch.Tensor:
-    """One storage-format leaf (tensors, :func:`quantized_to_device`) back
-    to a tensor of ``dtype``; a raw leaf as it is.
+@dataclasses.dataclass(frozen=True)
+class _Unpack:
+    """Where a rank's part of a quantized leaf lies in the part of its
+    packed delta that the rank holds (:func:`_unpack_plan`)."""
 
-    The reference's ``dequantize_leaf_jnp``, operation for operation: the
-    base ``(base - bz) * bs``, the nibbles stacked low / high along a new
-    dim 1 and reshaped to ``(2 * rows, -1)``, the delta
-    ``(nibble - dz + 0.5) * ds``, their sum in float32, then the cast.
-    Each step is its own correctly rounded float32 operation (no fused
-    multiply-add), so the card and the CPU give the same bits.
-    """
-    if "raw" in q:
-        return q["raw"]
+    rows: slice  # the packed rows that hold the part's rows
+    view: tuple  # the packed columns as (a range of dim 1, *dims 2…)
+    cols: tuple  # the part's columns in that view
+    first: int  # the part's first row among the unpacked rows (0 or 1)
+    n_rows: int
+    exact: bool  # the held packed rows and columns are exactly the part's
+
+
+def _box(shape: tuple, splits) -> list[tuple[int, int]]:
+    """The index range of each dim of a tensor of ``shape`` that a rank
+    holds under ``splits``: (dim, chunks, this rank's chunk), in the order
+    they apply (a split over the expert ranks before ``model``'s), each an
+    equal contiguous chunk of what the splits before it left (the spec
+    trees split only what divides)."""
+    box = [(0, n) for n in shape]
+    for dim, n, i in splits:
+        lo, hi = box[dim]
+        size = (hi - lo) // n
+        box[dim] = (lo + i * size, lo + (i + 1) * size)
+    return box
+
+
+def _unpack_plan(shape: tuple, part: list, held: list) -> _Unpack | None:
+    """How a rank unpacks ``part`` (the box it holds of a quantized leaf of
+    ``shape``) from ``held`` (the box it holds of the packed delta, of
+    ``(shape[0] / 2, prod(shape[1:]))``): the packed rows of its rows, the
+    packed columns viewed as dim 1's range by the dims after it, the
+    part's columns there. None where ``held`` lacks some of them (its
+    columns split finer than dim 1, or on another dim than the part's)."""
+    (r0, r1), (lo, hi), rest = part[0], part[1], part[2:]
+    p0, p1 = r0 // 2, (r1 + 1) // 2
+    (h0, h1), (c0, c1) = held
+    inner = math.prod(shape[2:])
+    if not h0 <= p0 < p1 <= h1 or c0 % inner or c1 % inner:
+        return None
+    q0, q1 = c0 // inner, c1 // inner
+    if not q0 <= lo < hi <= q1:
+        return None
+    exact = ((r0, r1, lo, hi) == (2 * h0, 2 * h1, q0, q1)
+             and all(b - a == n for (a, b), n in zip(rest, shape[2:])))
+    return _Unpack(slice(p0 - h0, p1 - h0), (q1 - q0,) + tuple(shape[2:]),
+                   (slice(lo - q0, hi - q0),) + tuple(slice(a, b) for a, b in rest),
+                   r0 - 2 * p0, r1 - r0, exact)
+
+
+def _rebuild(q: dict, dtype, plan: _Unpack) -> torch.Tensor:
+    """``q["base"]`` (a box of the leaf) rebuilt in ``dtype`` from the rows
+    and columns of ``q["packed"]`` that ``plan`` names: the reference's
+    ``dequantize_leaf_jnp``, operation for operation, on those elements.
+    The base ``(base - bz) * bs``, the nibbles stacked low / high along a
+    new dim 1 (row 2k the low nibble, 2k + 1 the high one), the delta
+    ``(nibble - dz + 0.5) * ds``, their sum in float32, then the cast. Each
+    step is its own correctly rounded float32 operation on one element (no
+    fused multiply-add), so a box gives the bits the whole leaf gives
+    there, and the card the CPU's."""
     base = (q["base"].to(torch.float32) - q["bz"]) * q["bs"]
-    packed = q["packed"]
+    packed = q["packed"][plan.rows]
+    packed = packed.reshape((packed.shape[0],) + plan.view)[(slice(None),) + plan.cols]
     low = (packed & 0xF).to(torch.float32)
     high = (packed >> 4).to(torch.float32)
-    d0_half = packed.shape[0]
-    nibbles = torch.stack([low, high], dim=1).reshape(2 * d0_half, -1)
+    nibbles = torch.stack([low, high], dim=1).flatten(0, 1)[plan.first:plan.first + plan.n_rows]
     delta = (nibbles - q["dz"] + 0.5) * q["ds"]
     return (base + delta.reshape(base.shape)).to(dtype)
+
+
+def dequantize_leaf(q: dict, dtype=torch.bfloat16) -> torch.Tensor:
+    """One storage-format leaf (tensors, :func:`quantized_to_device`) back
+    to a tensor of ``dtype``; a raw leaf as it is (:func:`_rebuild` of
+    the whole leaf)."""
+    if "raw" in q:
+        return q["raw"]
+    shape = tuple(q["base"].shape)
+    whole = [(0, n) for n in shape]
+    held = [(0, shape[0] // 2), (0, math.prod(shape[1:]))]
+    return _rebuild(q, dtype, _unpack_plan(shape, whole, held))
+
+
+def _dequantize_shard(q: dict, dtype, stacked: bool) -> torch.Tensor:
+    """Inside a tensor-parallel step: this rank's part of a quantized leaf
+    rebuilt from its parts of ``base`` and ``packed`` (DTensors over the
+    ``model`` submesh, split over the expert ranks where the step keeps
+    them so), placed as ``base`` is, behind one ``sh.local_seam``. A rank
+    unpacks only the packed rows and columns its ``base`` covers (a
+    stacked ``wq`` whose ``d_head`` is split: a strided view of the packed
+    ``(L/2, D, H, dh)``), with no collective, where the packed part it
+    holds has them (:func:`rebuild_cases` (a) and (b)); else (c) its
+    packed is first gathered over ``model``, one all-gather. A leaf's
+    experts lie on its first dim after the stack, and so do its packed
+    delta's (its rows, or a stacked leaf's flattened columns)."""
+    from torch.distributed.tensor import Replicate
+
+    sub = sh.compute_mesh()
+    base, packed = q["base"], q["packed"]
+    ep_dim = int(stacked)
+
+    def splits(x, dim, model=True) -> list:
+        i, n = sh.expert_part(x)
+        out = [(dim, n, i)] if n > 1 else []
+        return out + [(p.dim, sub.size(k), sub.get_local_rank(k))
+                      for k, p in enumerate(x.placements) if model and p.is_shard()]
+
+    shape = list(base.shape)
+    shape[ep_dim] *= sh.expert_part(base)[1]
+    shape = tuple(shape)
+    pshape = (shape[0] // 2, math.prod(shape[1:]))
+    part = _box(shape, splits(base, ep_dim))
+    held_at = tuple(packed.placements)
+    plan = _unpack_plan(shape, part, _box(pshape, splits(packed, ep_dim)))
+    if plan is None:
+        held_at = (Replicate(),) * sub.ndim
+        plan = _unpack_plan(shape, part, _box(pshape, splits(packed, ep_dim, False)))
+    whole = (Replicate(),) * sub.ndim
+
+    def local(b, p, bz, bs, dz, ds):
+        return _rebuild({"base": b, "packed": p, "bz": bz, "bs": bs, "dz": dz, "ds": ds},
+                        dtype, plan)
+
+    at = tuple(base.placements)
+    return sh.local_seam(local, at, [at, held_at] + [whole] * 4)(
+        base, packed, q["bz"], q["bs"], q["dz"], q["ds"])
+
+
+def dequantize_params(qparams, dtype):
+    """Every leaf of a placed storage-format tree in ``dtype`` (a raw leaf
+    as it is): :func:`dequantize_leaf` of each, or inside a
+    tensor-parallel step (``launch.shardings.sharded``'s ``"tp"`` route)
+    each rank's own part of each, placed as its ``base`` is."""
+    def one(path, q):
+        if "raw" in q:
+            return q["raw"]
+        if sh.compute_mesh() is None:
+            return dequantize_leaf(q, dtype)
+        return _dequantize_shard(q, dtype, "periods" in path)
+
+    return _map_with_path(one, qparams, is_leaf=_is_q)
 
 
 def make_compressed_serve_step(cfg: ModelConfig):
     """serve_step over storage-format weights (greedy decode one token).
 
     Every leaf of the placed tree is reconstructed in ``cfg.compute_dtype``
-    on its device at each step, then one ``decode_step``: on the card it
-    all runs there.
+    on its device at each step (:func:`dequantize_params`), then one
+    ``decode_step``: on the card it all runs there. Inside
+    ``launch.shardings.sharded`` on the ``"tp"`` route each rank rebuilds
+    only its shard of each weight and ``decode_step`` runs split over
+    ``model``, as the plain serve step does.
     """
     dtype = _dtype(cfg.compute_dtype)
 
-    @torch.inference_mode()
+    @_inference
     def step(qparams, cache, batch, pos):
-        params = _map_quantized(lambda q: dequantize_leaf(q, dtype), qparams)
+        params = dequantize_params(qparams, dtype)
         logits, new_cache = decode_step(params, cache, batch, pos, cfg)
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        next_tok = torch.argmax(sh.unsplit(logits[:, -1, :], 1), dim=-1).to(torch.int32)
         return next_tok, new_cache
 
     return step
+
+
+def _quantized_items(tree, path=()):
+    """(path, storage-format leaf) of a quantized tree, in its order."""
+    if _is_q(tree):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _quantized_items(v, path + (k,))
+    else:
+        for i, v in enumerate(tree):
+            yield from _quantized_items(v, path + (i,))
+
+
+def rebuild_cases(qspecs, ctx: sh.ShardingCtx) -> dict[str, str]:
+    """{path: case} for each quantized leaf of a storage-format tree
+    (:func:`compressed_param_specs`'s stand-ins) placed by
+    ``compressed_param_specs_tree`` under ``ctx``, as the ``"tp"`` route
+    rebuilds it (:func:`_dequantize_shard`) on every rank of ``ctx.mesh``
+    (a ``DeviceMesh`` or the reference's stand-in): ``"a"`` where each
+    rank's packed part is exactly the delta of its ``base`` part, ``"b"``
+    where it holds more (the packed whole over an axis that splits
+    ``base``) and the rank slices it before it unpacks, ``"c"`` where it
+    lacks some (gathered over ``model`` first). The step sees a leaf split
+    over ``model`` and, where its spec splits it as the batch is (an
+    expert weight's ``P(dp, …)``), over those data-parallel ranks; every
+    other axis gathered."""
+    specs = compressed_param_specs_tree(qspecs, ctx)
+    sizes = sh.mesh_axis_sizes(ctx.mesh)
+    dp = sh._axes(ctx.spec("tokens")[0])
+    m = sizes.get("model", 1)
+    out = {}
+    for (path, q), (_, s) in zip(_quantized_items(qspecs), _quantized_items(specs), strict=True):
+        if "raw" in q:
+            continue
+        shape = tuple(q["base"].shape)
+        pshape = (shape[0] // 2, math.prod(shape[1:]))
+        n_ep = _axis_size(ctx.mesh, _expert_axes(s["base"], dp) or None)
+
+        def splits(spec, ndim, r, e):
+            entries = tuple(spec)[:ndim]
+            return ([(d, n_ep, e) for d, x in enumerate(entries) if _expert_axes(P(x), dp)]
+                    + [(d, m, r) for d, x in enumerate(entries) if "model" in sh._axes(x)])
+
+        plans = [_unpack_plan(shape, _box(shape, splits(s["base"], len(shape), r, e)),
+                              _box(pshape, splits(s["packed"], 2, r, e)))
+                 for r in range(m) for e in range(n_ep)]
+        out["/".join(map(str, path))] = ("c" if None in plans else
+                                         "a" if all(p.exact for p in plans) else "b")
+    return out
 
 
 def compressed_param_specs(cfg: ModelConfig):

@@ -43,14 +43,17 @@ heads; and a MoE model's (granite-moe-3b-a800m, arctic-480b): each rank
 computes its columns of each expert's hidden, and where the experts divide
 over the data axes (arctic's 128 over 16, or 32 on the multi-pod mesh) it
 keeps its own experts and the tokens travel to them by an all-to-all
-(``sh.expert_exchange``; granite's 40 are gathered over ``data``). The
-compressed serving step and ``--profile dp`` take the gathered route: each
-rank gathers every weight whole and runs the whole model on its rows, so
-the ranks of a ``model`` group repeat each other's compute, which
-``useful_flops_ratio`` shows. On the CPU's process groups DTensor moves a
-shard to another dim by an all-gather and a slice (no all-to-all), and
-the fake group is one of them: such a move is counted as an all-gather;
-the expert exchange is an all-to-all of its own, counted as one.
+(``sh.expert_exchange``; granite's 40 are gathered over ``data``); and a
+compressed decode cell's (``--compressed``): each rank holds its shard of
+the storage format (``compressed_param_specs_tree``) and rebuilds only its
+shard of each weight before the split decode step. ``--profile dp`` takes
+the gathered route: each rank gathers every weight whole and runs the
+whole model on its rows, so the ranks of a ``model`` group repeat each
+other's compute, which ``useful_flops_ratio`` shows. On the CPU's process
+groups DTensor moves a shard to another dim by an all-gather and a slice
+(no all-to-all), and the fake group is one of them: such a move is
+counted as an all-gather; the expert exchange is an all-to-all of its
+own, counted as one.
 
 The fake group takes the process's default group, so run this as its own
 process:
@@ -218,10 +221,8 @@ def lower_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, multi_pod: bool,
                 serve = make_compressed_serve_step(cfg)
             else:
                 serve = make_serve_step(cfg)
-            # The compressed parameters keep the gathered route.
             step = shd.sharded(serve, (p_spec, shd.per_batch(c_spec), batch, None),
-                               (shd.per_batch(None), shd.per_batch(c_spec)), ctx,
-                               cfg=None if compressed else cfg)
+                               (shd.per_batch(None), shd.per_batch(c_spec)), ctx, cfg=cfg)
             args = (shd.place(p_specs, p_spec, mesh), shd.place(c_specs, c_spec, mesh),
                     shd.place(b_specs, b_spec, mesh), 0)
             # every rank's int32 tokens, and the cache back in place

@@ -31,11 +31,14 @@ step's *route* (:func:`compute_route`):
   step sees this rank's experts, and the tokens travel to them
   (``sh.expert_exchange``, an all-to-all over those axes, which the step
   runs under ``sh.expert_parallel``); on the way out they are put back
-  split over those axes;
+  split over those axes. The storage-format trees
+  (:func:`compressed_param_specs_tree`) take it too: the compressed serve
+  step rebuilds each rank's shard of each weight from its shards of the
+  int8 ``base`` and the packed delta (``compressed_serve.dequantize_params``);
 * ``"gathered"``, every other step (the ``"dp"`` rules, a ``model`` axis
-  of one rank, the compressed parameters, a step named no config): every
-  input is gathered whole and the step runs on local tensors, so the
-  ranks of a ``model`` group repeat each other's compute.
+  of one rank, a step named no config): every input is gathered whole and
+  the step runs on local tensors, so the ranks of a ``model`` group repeat
+  each other's compute.
 
 Either way the gradients are summed over the data-parallel ranks inside
 the step (``sharding.data_parallel_sum`` in ``make_train_step``), so every
@@ -290,15 +293,31 @@ def compressed_param_specs_tree(qtree, ctx: sh.ShardingCtx):
 def place(tree, specs, mesh):
     """The tensors of ``tree`` as DTensors placed by ``specs`` over
     ``mesh``: a plain tensor, the same global tensor on every rank, is
-    distributed by keeping each rank's part (no communication); a DTensor
-    is redistributed where its placements differ."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
+    distributed by keeping each rank's part (no communication), sliced
+    where it lies and only then moved to the mesh's device, as
+    ``jax.device_put`` with a ``NamedSharding`` uploads each device's part
+    alone (a host tree that no card could hold whole is placed so). A part
+    that is a contiguous view of a tensor already on the mesh's device
+    (the whole tensor, or rows of dim 0) is that view, not a copy; a step
+    that updates such an input in place (a cache) updates the tensor
+    given. A DTensor is redistributed where its placements differ."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     def one(x, spec):
-        target = sh.placements(spec, mesh)
+        target = sh.placements(spec, mesh, x.ndim)
         if isinstance(x, DTensor):
             return x if tuple(x.placements) == tuple(target) else x.redistribute(mesh, target)
-        return distribute_tensor(x, mesh, target, src_data_rank=None)
+        shape, offset = compute_local_shape_and_global_offset(x.shape, mesh, target)
+        local = x
+        for dim, (n, start) in enumerate(zip(shape, offset)):
+            if n != x.shape[dim]:
+                local = local.narrow(dim, start, n)
+        local = local.contiguous()
+        if not x.is_meta and x.device.type != mesh.device_type:
+            local = local.to(mesh.device_type)
+        return DTensor.from_local(local, mesh, target, run_check=False, shape=x.shape,
+                                  stride=x.stride())
 
     return tree_map(one, tree, specs)
 

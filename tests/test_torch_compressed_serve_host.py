@@ -5,8 +5,10 @@ The three cases of ``tests/test_compressed_serve.py`` run on the port with
 their ``MIN_QUANT_SIZE`` monkeypatch and bounds, on the reference's
 parameters carried across by ``params_from_reference``. Beside them: the
 storage-format dicts byte for byte, the reconstruction bit for bit, eight
-compressed serve steps against the reference's, and the reference's
-bfloat16 fault pinned both ways (ROADMAP queue C). Trees are compared leaf
+compressed serve steps against the reference's, the reference's bfloat16
+fault pinned both ways (ROADMAP queue C), and a rank's part of a leaf
+rebuilt from its parts of the storage format, bit for bit, in each way
+the parts can lie (``PART_LAYOUTS``). Trees are compared leaf
 by leaf in ``jax.tree_util`` order (dict keys sorted), which walks the
 port's trees too: a tensor is a leaf to it.
 """
@@ -231,3 +233,56 @@ def test_placement_defaults_to_the_card(small_quant):
         pytest.skip("a card is present: the default runs there")
     with pytest.raises(RuntimeError, match="CUDA"):
         TS.quantized_to_device(qparams)
+
+
+# ----------------------------------------------- a rank's part of a leaf
+# (shape, the mesh axes, the case): an axis is (the base's dim it splits,
+# the packed delta's dim it splits or None, its ranks); a rank takes one
+# chunk of each dim an axis splits, the axes in order (the expert ranks'
+# before ``model``'s, the last). The packed delta of a leaf of shape (d0,
+# ...) is (d0 / 2, the rest flattened).
+PART_LAYOUTS = [
+    ((8, 6, 4), [(1, 1, 2)], "a"),               # dim 1 and the columns alike
+    ((8, 6, 4), [(0, 0, 2)], "a"),               # rows, in whole pairs
+    ((8, 6, 4), [(2, None, 2)], "b"),            # d_head split, the packed whole
+    ((8, 6, 4), [(0, None, 8)], "b"),            # one row a rank: one nibble of a byte
+    ((8, 6, 4), [(0, 0, 2), (2, None, 2)], "b"),  # experts over rows, then their hidden
+    ((4, 4, 6, 4), [(1, 1, 2), (3, None, 2)], "b"),  # a stacked expert weight
+    ((4, 4, 6, 4), [(1, None, 4)], "b"),         # its experts, the packed whole
+    ((2, 4, 6), [(0, None, 2), (2, 1, 2)], "c"),  # one expert a rank, columns by dim 1
+    ((8, 6, 4), [(2, 1, 2)], "c"),               # d_head split, columns by dim 1
+]
+
+
+@pytest.mark.parametrize("shape,axes,case", PART_LAYOUTS)
+def test_each_part_rebuilds_the_whole_leafs_bits(shape, axes, case):
+    """For every rank of a layout: its part of ``base`` and of ``packed``
+    sliced from the whole leaf, ``_unpack_plan`` of the two (None where the
+    packed part lacks some of the base part's delta, case (c); then the
+    packed gathered over the last axis, as the tp route gathers it over
+    ``model``), and ``_rebuild`` of the parts bit-identical to
+    ``dequantize_leaf`` of the whole leaf there, in float32 and in
+    bfloat16."""
+    import itertools
+
+    gen = torch.Generator().manual_seed(3)
+    q = TS.quantized_to_device(TS.quantize_leaf(torch.randn(shape, generator=gen)), "cpu")
+    pshape = (shape[0] // 2, int(np.prod(shape[1:])))
+    for dtype, bits in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
+        whole = TS.dequantize_leaf(q, dtype)
+        seen = set()
+        for rank in itertools.product(*(range(n) for *_, n in axes)):
+            part = TS._box(shape, [(bd, n, i) for (bd, _, n), i in zip(axes, rank)])
+            packed = [(pd, n, i) for (_, pd, n), i in zip(axes, rank) if pd is not None]
+            plan = TS._unpack_plan(shape, part, TS._box(pshape, packed))
+            seen.add("c" if plan is None else "a" if plan.exact else "b")
+            if plan is None:
+                packed = [(pd, n, i) for (_, pd, n), i in zip(axes[:-1], rank) if pd is not None]
+                plan = TS._unpack_plan(shape, part, TS._box(pshape, packed))
+            held = TS._box(pshape, packed)
+            local = dict(q, base=q["base"][tuple(slice(a, b) for a, b in part)],
+                         packed=q["packed"][tuple(slice(a, b) for a, b in held)])
+            got = TS._rebuild(local, dtype, plan)
+            want = whole[tuple(slice(a, b) for a, b in part)]
+            assert torch.equal(got.view(bits), want.view(bits)), (rank, dtype)
+        assert seen == {case}, (seen, case)

@@ -43,7 +43,9 @@ on a (2, 2) mesh, the routed experts split over ``data`` and their hidden
 over ``model``, the tokens crossing the data ranks by an NCCL all-to-all
 (granite-moe-3b-a800m's widths and arctic-480b's, train steps against the
 microbatched step; arctic's prefill and serve step with all 128 experts
-against the gathered route).
+against the gathered route); and on a (1, 4) mesh at internlm2-1.8b's
+widths, the compressed serve step with each rank holding and rebuilding
+only its shard of the storage format, against the gathered route.
 """
 
 import dataclasses
@@ -1110,6 +1112,9 @@ TP4_MOE = {"granite-moe-3b-a800m": dict(n_layers=2),
 # same argmax on every row whose top-2 margin exceeds it.
 TP4_PREFILL = (4, 2048)
 FA_LOGITS_ATOL = 0.15
+# The compressed serve step's steps a turn on the (1, 4) mesh: the decode
+# of chip_smoke.py's phases 11 and 12 (f), 16 tokens at batch TP4_BATCH.
+TP4_COMPRESSED_STEPS = 16
 
 
 def _tp4_config(arch: str):
@@ -1382,6 +1387,162 @@ def test_tensor_parallel_train_step_at_internlm2_widths_on_four_cards(cuda, tmp_
     to it); each rank's peak memory and ms a step on both routes are
     printed."""
     _hold_tp4(tmp_path, "internlm2-1.8b")
+
+
+def _tp4_compressed_worker(rank: int, store_path: str, out_dir: str) -> None:
+    """One of four NCCL ranks on a (1, 4) mesh: internlm2-1.8b's widths at
+    TP4_LAYERS layers in float32 (``_tp4_config``), quantized on the host
+    (``quantize_params``: every rank the same bytes) and placed by
+    ``compressed_param_specs_tree`` under the serving table, each rank
+    uploading its part alone; the compressed serve step on the tp route
+    and on the gathered route in turns (tp, gathered, tp, gathered), each
+    turn TP4_COMPRESSED_STEPS steps fed the same prompt tokens: each
+    rank's storage-format bytes, its peak memory across a turn's steps
+    (reset after placing) and its ms a step; in the first turn the tokens
+    and the last-position logits of ``decode_step`` over the rebuilt
+    parameters. Then every leaf rebuilt on the tp route, gathered, against
+    rank 0's ``dequantize_leaf`` of the whole leaf."""
+    import json
+    import os
+    import time
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import compressed_serve as cs
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import model_specs
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store_path, 4), rank=rank, world_size=4)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", rank)
+        cfg = _tp4_config("internlm2-1.8b")
+        b, n = TP4_BATCH, TP4_COMPRESSED_STEPS
+        prompts = torch.from_numpy(np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (b, n))).to(dev)
+        t0 = time.perf_counter()
+        host = cs.quantized_to_device(cs.quantize_params(init_params(cfg, seed=0, device=dev)),
+                                      "cpu")
+        quantize_s = time.perf_counter() - t0
+        mesh = make_mesh((1, 4), ("data", "model"))
+
+        @torch.no_grad()
+        def decode(qparams, cache, batch, pos):
+            logits, cache = decode_step(cs.dequantize_params(qparams, torch.float32), cache,
+                                        batch, pos, cfg)
+            return sh.unsplit(logits[:, -1], 1).to(torch.float32), cache
+
+        def rebuild(qparams, batch):
+            return (cs.dequantize_params(qparams, torch.float32),)
+
+        with sh.use_mesh(mesh, seq_shard=False, serve=True) as ctx:
+            q_spec = shd.compressed_param_specs_tree(host, ctx)
+            p_spec = shd.param_specs_tree(model_specs(cfg), ctx)
+            c_spec = shd.cache_specs_tree(init_cache(cfg, b, n, device=dev), ctx,
+                                          cfg.n_kv_heads)
+            rows = shd.per_batch(shd.batch_specs_tree({"tokens": prompts[:, :1]}, ctx))
+            step_specs = ((q_spec, shd.per_batch(c_spec), rows, None),
+                          (shd.per_batch(None), shd.per_batch(c_spec)), ctx)
+            paths = {route: (shd.sharded(cs.make_compressed_serve_step(cfg), *step_specs,
+                                         cfg=cfg, route=route),
+                             shd.sharded(decode, *step_specs, cfg=cfg, route=route))
+                     for route in ("tp", "gathered")}
+            rebuilt = shd.sharded(rebuild, (q_spec, rows), (p_spec,), ctx, cfg=cfg)
+        t0 = time.perf_counter()
+        placed = shd.place(host, q_spec, mesh)
+        torch.cuda.synchronize()
+        report = {"routes": {k: v[0].route for k, v in paths.items()},
+                  "quantize_s": quantize_s, "place_s": time.perf_counter() - t0,
+                  "storage_bytes": {"tp": shd.local_bytes(placed),
+                                    "gathered": sum(x.numel() * x.element_size()
+                                                    for x in tree_leaves(host))},
+                  "ms": {}, "peak": {}}
+        out = {}
+        for turn in range(2):
+            for route, (serve, logits_step) in paths.items():
+                cache = shd.place(init_cache(cfg, b, n, device=dev), c_spec, mesh)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                toks = []
+                for pos in range(n):
+                    t0 = time.perf_counter()
+                    tok, cache = serve(placed, cache, {"tokens": prompts[:, pos:pos + 1]}, pos)
+                    torch.cuda.synchronize()
+                    report["ms"].setdefault(route, []).append((time.perf_counter() - t0) * 1e3)
+                    toks.append(tok)
+                report["peak"].setdefault(route, []).append(torch.cuda.max_memory_allocated())
+                if turn == 0:
+                    cache = shd.place(init_cache(cfg, b, n, device=dev), c_spec, mesh)
+                    logits = []
+                    for pos in range(n):
+                        lg, cache = logits_step(placed, cache,
+                                                {"tokens": prompts[:, pos:pos + 1]}, pos)
+                        logits.append(lg.cpu())
+                    out[route] = (torch.stack(toks, 1).cpu(), torch.stack(logits, 1))
+                del cache
+        got = rebuilt(placed, {"tokens": prompts[:, :1]})[0]
+        same = []
+        for (path, q), x in zip(cs._quantized_items(host), tree_leaves(got), strict=True):
+            whole = x.full_tensor()  # every rank joins
+            if rank == 0:
+                on_card = {k: v.to(dev) for k, v in q.items()}
+                want = cs.dequantize_leaf(on_card, torch.float32)
+                same.append(("/".join(map(str, path)), bool(torch.equal(
+                    whole.view(torch.int32) if whole.dtype == torch.float32 else whole,
+                    want.view(torch.int32) if want.dtype == torch.float32 else want))))
+                del on_card, want
+            del whole
+        report["rebuilt_bit_identical"] = same
+        if rank == 0:
+            torch.save({"report": report, "out": out}, os.path.join(out_dir, "tp4_compressed.pt"))
+        with open(os.path.join(out_dir, f"tp4_compressed_r{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_compressed_serve_step_on_the_tp_route_on_four_cards(cuda, tmp_path):
+    """Four cards, a (1, 4) mesh, internlm2-1.8b's widths at 2 layers in
+    float32 on the storage format (``_tp4_compressed_worker``): each rank
+    holds and rebuilds only its shard of every quantized weight on the tp
+    route. Every rebuilt leaf, gathered, bit-identical to the whole leaf's
+    rebuild; ``decode_step`` over the rebuilt parameters within
+    ``TP_TOL`` of the gathered route's, and the tokens equal wherever the
+    gathered route's logits' top-2 margin exceeds TP_TOL's atol; each
+    rank's storage-format bytes, peak memory and ms a step on both routes
+    printed, the tp route's bytes below a third of the gathered route's
+    and its peak below half."""
+    import json
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    _spawn_four(_tp4_compressed_worker, tmp_path)
+    got = torch.load(tmp_path / "tp4_compressed.pt", weights_only=False)
+    reports = [json.loads((tmp_path / f"tp4_compressed_r{r}.json").read_text())
+               for r in range(4)]
+    for r, rep in enumerate(reports):
+        print(f"compressed serve step, internlm2-1.8b widths, 2 layers, float32, (1, 4) rank {r}: "
+              f"storage-format bytes {rep['storage_bytes']}, peak bytes {rep['peak']}, ms a step "
+              f"{rep['ms']}; quantize_params {rep['quantize_s']:.3f} s, placed in "
+              f"{rep['place_s']:.3f} s")
+        assert rep["routes"] == {"tp": "tp", "gathered": "gathered"}
+        assert rep["storage_bytes"]["tp"] * 3 < rep["storage_bytes"]["gathered"]
+        assert max(rep["peak"]["tp"]) * 2 < min(rep["peak"]["gathered"])
+    same = got["report"]["rebuilt_bit_identical"]
+    assert same and all(ok for _, ok in same), same
+    (tp_toks, tp_logits), (g_toks, g_logits) = got["out"]["tp"], got["out"]["gathered"]
+    gap = float((tp_logits - g_logits).abs().max())
+    top2 = torch.topk(g_logits, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > TP_TOL["atol"]
+    print(f"tp route's logits max gap {gap:.3e} from the gathered route's; tokens equal on the "
+          f"{int(clear.sum())} of {clear.numel()} steps whose top-2 margin exceeds "
+          f"{TP_TOL['atol']}; every token equal {bool(torch.equal(tp_toks, g_toks))}")
+    np.testing.assert_allclose(tp_logits.numpy(), g_logits.numpy(), **TP_TOL)
+    assert torch.equal(tp_toks[clear], g_toks[clear])
 
 
 @pytest.mark.parametrize("arch", list(TP4_MOE))

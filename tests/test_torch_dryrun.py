@@ -7,9 +7,12 @@ no TPU. The port's runs the reference test's cell, internlm2-1.8b ×
 ranks (and of 512 for the multi-pod mesh), in a subprocess because the
 fake group takes the process's default group. Its record has the
 reference's keys, and its per-device argument bytes equal the shard bytes
-that the reference's own spec trees give for the same cell.
+that the reference's own spec trees give for the same cell; so do the
+compressed decode cell's (``--compressed``, on the tp route) against the
+reference's storage-format spec trees.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -22,6 +25,7 @@ import numpy as np
 from jax.sharding import PartitionSpec as JP
 
 import repro.distributed.sharding as RS
+import repro.launch.compressed_serve as r_cs
 import repro.launch.shardings as RSH
 import repro.launch.specs as r_specs
 from repro.configs import get_config as r_get_config
@@ -49,9 +53,30 @@ class StandIn:
         self.devices = np.empty(shape, dtype=object)
 
 
-def _reference_shard_bytes(arch: str, shape_name: str, multi_pod: bool) -> int:
-    """One device's bytes of params, cache and batch under the reference's
-    spec trees for a decode cell (even shards: the trees fit the mesh)."""
+def _reference_params(cfg, ctx, compressed: bool) -> tuple:
+    """The reference's parameter stand-ins of a decode cell and their spec
+    tree: the storage-format tree (``compressed_param_specs``) where
+    ``compressed``. The reference leaves a bfloat16 leaf raw (ROADMAP queue
+    C), so its tree is taken of the float32 twin, each raw leaf of which is
+    the config's own leaf (the port quantizes the bfloat16 leaves to the
+    same storage format)."""
+    params = r_specs.model_specs(cfg)
+    if not compressed:
+        return params, RSH.param_specs_tree(params, ctx)
+    is_q = lambda x: isinstance(x, dict) and ("raw" in x or "base" in x)  # noqa: E731
+    twin = r_cs.compressed_param_specs(dataclasses.replace(cfg, param_dtype="float32"))
+    tree = jax.tree.map(lambda q, leaf: {"raw": leaf} if "raw" in q else q, twin, params,
+                        is_leaf=is_q)
+    return tree, RSH.compressed_param_specs_tree(tree, ctx)
+
+
+def _reference_shard_bytes(arch: str, shape_name: str, multi_pod: bool,
+                           compressed: bool = False) -> int:
+    """One device's bytes of params (their storage format where
+    ``compressed``), cache and batch under the reference's spec trees for a
+    decode cell (even shards: the trees fit the mesh; an entry past a
+    leaf's dims, which the storage-format trees keep where its axes have
+    one rank, splits nothing)."""
     shape = SHAPES[shape_name]
     cfg = r_get_config(arch)
     if multi_pod:
@@ -61,7 +86,7 @@ def _reference_shard_bytes(arch: str, shape_name: str, multi_pod: bool) -> int:
         mesh = StandIn((16, 16), ("data", "model"))
         rules = RS._rules_single_pod(False, True)
     ctx = RS.ShardingCtx(mesh, RS._serving_params(rules))
-    trees = [(r_specs.model_specs(cfg), RSH.param_specs_tree(r_specs.model_specs(cfg), ctx))]
+    trees = [_reference_params(cfg, ctx, compressed)]
     cache = r_specs.decode_cache_specs(cfg, shape)
     trees.append((cache, RSH.cache_specs_tree(cache, ctx, cfg.n_kv_heads)))
     batch = r_specs.batch_specs(cfg, shape)
@@ -75,6 +100,9 @@ def _reference_shard_bytes(arch: str, shape_name: str, multi_pod: bool) -> int:
             dims = list(leaf.shape)
             for i, axis in enumerate(tuple(spec)):
                 n = RSH._axis_size(mesh, axis)
+                if i >= len(dims):
+                    assert n == 1
+                    continue
                 assert dims[i] % n == 0
                 dims[i] //= n
             total += math.prod(dims) * np.dtype(leaf.dtype).itemsize
@@ -155,3 +183,30 @@ def test_microbatches_divide_every_ranks_rows():
     assert dryrun._microbatches(cfg, shape, multi, "tp") == 8
     assert dryrun._microbatches(cfg, shape, multi, "dp") == 1
     assert dryrun._microbatches(get_config("internlm2-1.8b"), shape, multi, "tp") == 8
+
+
+# The dry run of internlm2-1.8b × decode_32k --compressed before the
+# compressed step took the tp route (the gathered route: every rank
+# gathering every quantized weight whole, rebuilding the whole model and
+# running it on its rows): its useful-FLOP ratio.
+GATHERED_COMPRESSED_DECODE_RATIO = 0.024
+
+
+def test_dryrun_compressed_decode_cell_on_the_tp_route(tmp_path):
+    """internlm2-1.8b × decode_32k on the storage format (``--compressed``):
+    the ``"tp"`` route, per-device argument bytes equal to the shard bytes
+    of the reference's storage-format spec trees (its
+    ``compressed_param_specs_tree``), and at least 4x the gathered route's
+    useful-FLOP ratio."""
+    out = tmp_path / "cell.json"
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": os.environ.get("PATH", "/usr/bin:/bin")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "internlm2-1.8b",
+         "--shape", "decode_32k", "--compressed", "--out", str(out)],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    (rec,) = json.loads(out.read_text())
+    assert rec["route"] == "tp"
+    assert rec["per_device"]["argument_bytes"] == _reference_shard_bytes(
+        "internlm2-1.8b", "decode_32k", multi_pod=False, compressed=True)
+    assert rec["useful_flops_ratio"] >= 4 * GATHERED_COMPRESSED_DECODE_RATIO

@@ -9,7 +9,9 @@ port's trees over its ``meta`` stand-ins against the reference's over its
 ``jax.ShapeDtypeStruct`` ones, for the parameters, the decode cache, every
 cell's batch, the optimizer state and the storage-format (compressed)
 trees, under the ``"tp"`` rules for training and for serving and the
-``"dp"`` rules.
+``"dp"`` rules; and, under both ``"tp"`` tables at the production shapes,
+how the tp route rebuilds each quantized leaf of the storage format
+(``compressed_serve.rebuild_cases``).
 
 On the multi-pod mesh the reference's own ``"tp"`` table has lost the pod
 axis under JAX 0.9 (``tests/test_torch_sharding.py`` pins that); there the
@@ -151,6 +153,65 @@ def test_compressed_param_specs_at_production_shapes(arch, mesh):
     got = shd.compressed_param_specs_tree(cs.compressed_param_specs(cfg), ctx)
     want = RSH.compressed_param_specs_tree(r_cs.compressed_param_specs(r_cfg), r_ctx)
     _assert_same_specs(got, want)
+
+
+# The quantized leaves whose packed delta a rank on the tp route must gather
+# over ``model`` before it rebuilds its part (case (c) of
+# ``compressed_serve.rebuild_cases``), {(arch, mesh, mode): paths}: none of
+# the zoo's at the production shapes, under either "tp" table.
+REBUILD_GATHERED: dict = {}
+# internlm2-1.8b's leaves under the serving table on 16 x 16: the embedding's
+# packed rows, the head's packed columns and the stacked wd's flattened F · D
+# columns split over ``model`` as their bases are (a); the packed delta of
+# the stacked attention and gate / up projections whole over ``model``, the
+# bases split on d_head or F, so that each rank slices its columns (b).
+INTERNLM2_SERVE_CASES = {"embed": "a", "lm_head": "a", "periods/slot0/mix/wd": "a",
+                         **{f"periods/slot0/{w}": "b" for w in ("seq/wq", "seq/wk", "seq/wv",
+                                                                 "seq/wo", "mix/wg", "mix/wu")}}
+
+
+def _step_axes(spec, ndim: int, dp: tuple) -> set:
+    """The axes over which a step on the tp route sees a leaf placed at
+    ``spec`` split: ``model``, and the batch's data-parallel axes where an
+    entry is written as the batch's (an expert weight's)."""
+    out = set()
+    for entry in tuple(spec)[:ndim]:
+        if "model" in sh._axes(entry):
+            out.add("model")
+        if isinstance(entry, tuple) and entry and set(entry) <= set(dp):
+            out.add("experts")
+    return out
+
+
+@pytest.mark.parametrize("mode", ["tp-train", "tp-serve"])
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("arch", list_archs())
+def test_rebuild_cases_at_production_shapes(arch, mesh, mode):
+    """How the tp route rebuilds each quantized leaf of the zoo's storage
+    format (``cs.rebuild_cases``) at the production shapes: case (a) where
+    the step sees its packed delta split over every axis it sees the base
+    split over, (b) where over fewer (the packed whole over ``model``, a
+    rank slicing its columns and rows before it unpacks), (c) only for the
+    leaves ``REBUILD_GATHERED`` names; internlm2's as the serving layout
+    gives them."""
+    ctx, _ = _contexts(MESHES[mesh], MODES[mode])
+    qspecs = cs.compressed_param_specs(get_config(arch))
+    cases = cs.rebuild_cases(qspecs, ctx)
+    specs = shd.compressed_param_specs_tree(qspecs, ctx)
+    dp = sh._axes(ctx.spec("tokens")[0])
+    want = {}
+    for (path, q), (_, s) in zip(cs._quantized_items(qspecs), cs._quantized_items(specs)):
+        if "raw" in q:
+            continue
+        base = _step_axes(s["base"], q["base"].ndim, dp)
+        packed = _step_axes(s["packed"], 2, dp)
+        assert packed <= base, path
+        want["/".join(map(str, path))] = "a" if packed == base else "b"
+    for path in REBUILD_GATHERED.get((arch, mesh, mode), []):
+        want[path] = "c"
+    assert cases == want
+    if (arch, mesh, mode) == ("internlm2-1.8b", "16x16", "tp-serve"):
+        assert cases == INTERNLM2_SERVE_CASES
 
 
 # ------------------------------------------------------ smoke, (1, 1) mesh

@@ -51,6 +51,15 @@ Held here:
 * the DTensor ops a recurrent model's forward dispatches do not grow with
   the sequence (the RWKV-6 chunk loop and the RG-LRU scan's passes run on
   local tensors behind their seams);
+* the compressed serve step (``COMPRESSED``, leaves of ``QUANT_SIZE``
+  elements and more quantized) on the route under both tables: its tokens
+  equal to the unsharded compressed step's, every leaf rebuilt from the
+  ranks' parts of the storage format bit-identical to ``dequantize_leaf``
+  of the whole leaf, no collective in the rebuild and no all-gather of a
+  split weight or storage-format leaf; hand-made leaves of each rebuild
+  case (``_crafted_tree``: the packed delta whole over ``data`` while the
+  experts are split, and case (c), whose one all-gather is its packed
+  part's); ``shd.place`` against ``distribute_tensor`` for each spec form;
 * the route each config takes (``compute_route``: every config of the zoo
   takes ``"tp"``), and the dry run of internlm2-1.8b, recurrentgemma-9b,
   rwkv6-7b, granite-moe-3b-a800m and arctic-480b × decode_32k on the
@@ -77,6 +86,8 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs import get_config, list_archs
 from repro_torch.data import SyntheticLM
 from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import P
+from repro_torch.launch import compressed_serve as cs
 from repro_torch.launch import shardings as shd
 from repro_torch.launch.hlo_stats import StepRecorder
 from repro_torch.launch.mesh import make_mesh
@@ -179,6 +190,11 @@ ARCHS = {"internlm2": "internlm2-1.8b", "recurrentgemma": "recurrentgemma-9b",
          "rwkv6": "rwkv6-7b", "granite": "granite-moe-3b-a800m"}
 RECURRENT = ("recurrentgemma", "rwkv6")
 MOE = ("granite", "arctic", "granite_e5")
+# The configs whose compressed serve step runs on the tp route, and the
+# storage format's quantization threshold there (the reference test's: at
+# the default, 65,536, every smoke leaf would stay raw).
+COMPRESSED = ("internlm2", "glm4_h6kv3", "recurrentgemma", "granite", "arctic")
+QUANT_SIZE = 1024
 
 
 def _seq(cfg) -> int:
@@ -388,6 +404,13 @@ def _worker(rank, shape, store_path, out_dir):
                     "bad_gathers": (_bad_gathers(pre_rec, groups, split_shapes)
                                     + _bad_gathers(rec, groups, split_shapes)),
                     "routed": routed, "exchanges": _exchanges(pre_rec, groups["data"])}
+        cs.MIN_QUANT_SIZE = QUANT_SIZE
+        for name in COMPRESSED:
+            for serve_rules in (True, False):
+                out[name][f"compressed_{serve_rules}"] = _compressed_serve(
+                    _configs()[name], weights[name], mesh, groups, shape, serve_rules)
+        out["crafted"] = _crafted_rebuild(mesh)
+        out["place"] = _place_forms(mesh)
         if shape == (1, 2):
             out["recorders"] = _recorders(mesh["model"])
         if shape == (2, 2):
@@ -396,6 +419,121 @@ def _worker(rank, shape, store_path, out_dir):
         torch.save(out, os.path.join(out_dir, f"r{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def _compressed_serve(cfg, params, mesh, groups, shape, serve_rules) -> dict:
+    """The compressed serve step over ``params``' storage format (leaves
+    of ``QUANT_SIZE`` elements and more quantized) on the tp route,
+    SERVE_STEPS tokens under the serving or the train table: its route and
+    tokens; the storage format rebuilt by a step on the same route and put
+    back where the plain parameters lie, gathered whole, with the
+    collectives that the rebuild issued; and the all-gathers over a group,
+    in the first serve step, with the shape of a split weight or of a split
+    storage-format leaf."""
+    qparams = cs.quantized_to_device(cs.quantize_params(params), "cpu")
+    rebuild_rec = StepRecorder()
+
+    def rebuild(q, batch):
+        with rebuild_rec:
+            return (cs.dequantize_params(q, torch.float32),)
+
+    with sh.use_mesh(mesh, seq_shard=False, serve=serve_rules) as ctx:
+        cache = init_cache(cfg, BATCH, CACHE_LEN, device="cpu")
+        q_spec = shd.compressed_param_specs_tree(qparams, ctx)
+        p_spec = shd.param_specs_tree(params, ctx)
+        c_spec = shd.cache_specs_tree(cache, ctx, cfg.n_kv_heads)
+        rows = shd.per_batch(shd.batch_specs_tree({"tokens": _prompt(cfg)}, ctx))
+        serve = shd.sharded(cs.make_compressed_serve_step(cfg),
+                            (q_spec, shd.per_batch(c_spec), rows, None),
+                            (shd.per_batch(None), shd.per_batch(c_spec)), ctx, cfg=cfg)
+        # The batch's rows: experts split over ``data`` need a batch split so.
+        rebuilt = shd.sharded(rebuild, (q_spec, rows), (p_spec,), ctx, cfg=cfg)
+    split = _split_weight_shapes(params, p_spec, shape)
+    for axis, shapes in _split_weight_shapes(qparams, q_spec, shape).items():
+        split[axis] |= shapes
+    qp = shd.place(qparams, q_spec, mesh)
+    cache, rec, toks = shd.place(cache, c_spec, mesh), StepRecorder(), []
+    for t in range(SERVE_STEPS):
+        feed = {"tokens": _prompt(cfg)[:, t:t + 1].to(torch.int32)}
+        with rec if t == 0 else contextlib.nullcontext():
+            tok, cache = serve(qp, cache, feed, t)
+        toks.append(tok)
+    return {"routes": (serve.route, rebuilt.route), "tokens": torch.stack(toks, 1),
+            "rebuilt": _full(rebuilt(qp, {"tokens": _prompt(cfg)})[0]),
+            "rebuild_collectives": rebuild_rec.shapes,
+            "bad_gathers": _bad_gathers(rec, groups, split)}
+
+
+def _crafted_tree():
+    """Four quantized leaves (float32 from a seed) and their base and packed
+    specs, one for each way a rank's packed part can lie (the zoo's
+    production layouts have no case (c), ``tests/test_torch_shardings.py``):
+    ``"c"``, ``d_head`` split with the packed columns split by rows of dim
+    1 (case (c): gathered over ``model`` first); ``"expert_whole"``, 4
+    experts split over the data ranks and their hidden over ``model``, the
+    packed whole (case (b) over both); ``"expert_c"``, 2 experts (one a
+    data rank at (2, 2): a rank reads one nibble of each byte) with the
+    packed columns split over ``model`` (case (c)); and a stacked leaf
+    whose hidden is split, its packed whole (case (b))."""
+    gen = torch.Generator().manual_seed(13)
+    leaves = {"c": ((4, 4, 6), P(None, None, "model"), P(None, "model")),
+              "expert_whole": ((4, 4, 6), P(("data",), None, "model"), P(None, None)),
+              "expert_c": ((2, 4, 6), P(("data",), None, "model"), P(None, "model")),
+              "periods": ((2, 4, 6), P(None, None, "model"), P(None, None, None))}
+    q, base_specs, specs = {}, {}, {}
+    for name, (shape, base, packed) in leaves.items():
+        q[name] = cs.quantized_to_device(cs.quantize_leaf(torch.randn(shape, generator=gen)),
+                                         "cpu")
+        base_specs[name] = base
+        specs[name] = {"base": base, "packed": packed,
+                       **{k: P() for k in ("bs", "bz", "bmid", "ds", "dz")}}
+    q["periods"], base_specs["periods"], specs["periods"] = (
+        {"w": q["periods"]}, {"w": base_specs["periods"]}, {"w": specs["periods"]})
+    return q, base_specs, specs
+
+
+def _crafted_rebuild(mesh) -> dict:
+    """``_crafted_tree``'s leaves rebuilt on the tp route (internlm2's smoke
+    config names the route; a batch split over ``data`` lets the experts
+    stay split) and put back where their bases lie, gathered whole, with
+    the collectives the rebuild issued."""
+    q, base_specs, specs = _crafted_tree()
+    rec = StepRecorder()
+
+    def rebuild(qt, batch):
+        with rec:
+            return (cs.dequantize_params(qt, torch.float32),)
+
+    with sh.use_mesh(mesh, seq_shard=False, serve=True) as ctx:
+        step = shd.sharded(rebuild, (specs, shd.per_batch(P(("data",)))), (base_specs,), ctx,
+                           cfg=_configs()["internlm2"])
+    got = step(shd.place(q, specs, mesh), torch.zeros(BATCH, dtype=torch.int32))[0]
+    return {"route": step.route, "rebuilt": _full(got), "collectives": rec.shapes}
+
+
+def _place_forms(mesh) -> list:
+    """(spec, shape, whether ``shd.place`` gives the DTensor that
+    ``distribute_tensor`` gives: placements, shape, stride and each rank's
+    local tensor with its strides) for each spec form the trees use: a dim
+    over an axis, over a tuple of one axis (the batch's) and of two,
+    whole, a transposed view, a 0-d scalar and an entry past its dims."""
+    from torch.distributed.tensor import distribute_tensor
+
+    x = torch.arange(4 * 6 * 2, dtype=torch.float32).reshape(4, 6, 2)
+    scalar = torch.tensor(3.5)
+    forms = [(x, P("data", "model", None)), (x, P(None, "model")),
+             (x, P(("data",), None, "model")), (x[:, :, 0], P(("data", "model"), None)),
+             (x, P()), (x[:, :, 0].t(), P("model", None)), (scalar, P()), (scalar, P(None))]
+    out = []
+    for t, spec in forms:
+        got = shd.place(t, spec, mesh)
+        want = distribute_tensor(t, mesh, sh.placements(spec, mesh, t.ndim), src_data_rank=None)
+        same = (tuple(got.placements) == tuple(want.placements) and got.shape == want.shape
+                and got.stride() == want.stride()
+                and got.to_local().stride() == want.to_local().stride()
+                and torch.equal(got.to_local(), want.to_local()))
+        out.append((tuple(spec), tuple(t.shape), same))
+    return out
 
 
 def _exchanges(rec, data_ranks) -> list:
@@ -809,6 +947,86 @@ def test_recurrent_dtensor_ops_do_not_grow_with_the_sequence(ranks, name):
         counts = r[name]["dtensor_ops"]
         assert counts[OP_COUNT_SEQS[0]] > 0
         assert counts[OP_COUNT_SEQS[1]] == counts[OP_COUNT_SEQS[0]], counts
+
+
+@pytest.fixture
+def small_quant(monkeypatch):
+    """The workers' quantization threshold, in the test process."""
+    monkeypatch.setattr(cs, "MIN_QUANT_SIZE", QUANT_SIZE)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+COMPRESSED_CASES = [(shape, name) for shape in MESH_SHAPES for name in COMPRESSED]
+
+
+@pytest.mark.parametrize("serve_rules", [True, False])
+@pytest.mark.parametrize("shape,name", COMPRESSED_CASES)
+def test_compressed_serve_step_is_the_unsharded_compressed_step(ranks, small_quant, shape, name,
+                                                               serve_rules):
+    """The compressed serve step on the tp route under the serving and the
+    train table: its greedy tokens equal the unsharded compressed step's;
+    every leaf that a step on the route rebuilds from its ranks' parts of
+    the storage format, put back where the plain weight lies and gathered,
+    bit-identical to ``dequantize_leaf`` of the whole leaf; no collective
+    in the rebuild (no leaf of these layouts is case (c),
+    ``cs.rebuild_cases``); and no all-gather over a group, in a serve step,
+    with the shape of a split weight or a split storage-format leaf."""
+    cfg = _configs()[name]
+    qparams = cs.quantized_to_device(cs.quantize_params(ranks["weights"][name]), "cpu")
+    step = cs.make_compressed_serve_step(cfg)
+    cache = init_cache(cfg, BATCH, CACHE_LEN, device="cpu")
+    toks = []
+    for t in range(SERVE_STEPS):
+        tok, cache = step(qparams, cache, {"tokens": _prompt(cfg)[:, t:t + 1].to(torch.int32)}, t)
+        toks.append(tok)
+    whole = tree_leaves(cs.dequantize_params(qparams, torch.float32))
+    with sh.use_mesh(_StandIn(shape, ("data", "model")), seq_shard=False,
+                     serve=serve_rules) as ctx:
+        cases = cs.rebuild_cases(cs.compressed_param_specs(cfg), ctx)
+    assert cases and "c" not in cases.values(), cases
+    for r in ranks[shape]:
+        got = r[name][f"compressed_{serve_rules}"]
+        assert got["routes"] == ("tp", "tp")
+        assert torch.equal(got["tokens"], torch.stack(toks, 1))
+        rebuilt = tree_leaves(got["rebuilt"])
+        assert len(rebuilt) == len(whole)
+        for a, b in zip(rebuilt, whole):
+            assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+        assert got["rebuild_collectives"] == []
+        assert got["bad_gathers"] == []
+
+
+@pytest.mark.parametrize("shape", MESH_SHAPES)
+def test_each_rebuild_case_gives_the_whole_leafs_bits(ranks, shape):
+    """``_crafted_tree``'s leaves rebuilt on the tp route, each rank from
+    its own parts (the experts' rank taken into account where the packed
+    delta is whole over ``data``), gathered: bit-identical to
+    ``dequantize_leaf`` of the whole leaf. The rebuild's one collective a
+    case-(c) leaf: an all-gather of its packed part over the ``model``
+    group; nothing else."""
+    q, _, _ = _crafted_tree()
+    want = tree_leaves(cs.dequantize_params(q, torch.float32))
+    for r in ranks[shape]:
+        got = r["crafted"]
+        assert got["route"] == "tp"
+        for a, b in zip(tree_leaves(got["rebuilt"]), want, strict=True):
+            assert torch.equal(_bits(a), _bits(b))
+        model = tuple(sorted(c for c in range(shape[0] * shape[1])
+                             if c // shape[1] == r["coords"][0]))
+        assert [(kind, group) for kind, _, group in got["collectives"]] == \
+            [("all-gather", model)] * 2, got["collectives"]
+
+
+@pytest.mark.parametrize("shape", MESH_SHAPES)
+def test_place_gives_distribute_tensors_dtensor(ranks, shape):
+    """``shd.place``, which slices each rank's part of a host tensor before
+    it moves it, gives every rank the DTensor ``distribute_tensor`` gives
+    for every spec form in use (``_place_forms``)."""
+    for r in ranks[shape]:
+        assert all(same for *_, same in r["place"]), r["place"]
 
 
 class _StandIn:
